@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+GPU and check them.
 
 Usage, from the root of a checkout, on a machine with a CUDA card, nvcc and
 nvidia-smi:
@@ -24,9 +25,21 @@ Phases (each checks its results; any failure ends the run non-zero with no
    one 5-image request;
 5. times (CUDA events, median of 50 after 10 warm-ups): per depthwise shape
    the kernel, the plain version and cuDNN's grouped conv; the served
-   forward at batch 64 in fp32 and in bf16 flow.
+   forward at batch 64 in fp32 and in bf16 flow;
+6. backward kernels vs plain: ``depthwise3x3_dx`` and ``depthwise3x3_dw``
+   against their plain PyTorch versions at the same shapes, in fp32 and
+   bf16; two dw runs must be bit-equal;
+7. the training slice: ResNet-18-depsep at full width, fresh batch norms,
+   three ``Trainer.step``s (SGDMomentum, EMA) at batch 64 on seeded data;
+   every step must launch the forward, dx and dw kernels 16 times each and
+   give a finite loss. Then a CPU twin: two steps at batch 4 (with clip and
+   EMA) on the card and on the CPU must agree;
+8. training times: per depthwise shape the dx and dw kernels against their
+   plain versions and cuDNN's grouped-conv backward; ``Trainer.step`` at
+   batch 64 in fp32 and in bf16 flow; a ``torch.profiler`` breakdown of
+   the fp32 step by kernel class.
 
-The line before the last is a JSON object of the kernels of the path; the
+The line before the last is a JSON object of the kernels of the paths; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero and prints no result.
 """
@@ -45,9 +58,12 @@ import torch.nn.functional as F
 from dorknet_tpu_torch import config
 from dorknet_tpu_torch.layers.base import to_nhwc
 from dorknet_tpu_torch.models import ResNet18
-from dorknet_tpu_torch.network import BatchingServer, InferenceRunner
+from dorknet_tpu_torch.network import BatchingServer, InferenceRunner, Trainer
 from dorknet_tpu_torch.ops.cuda.build import load_library
-from dorknet_tpu_torch.ops.cuda.depthwise import depthwise3x3, depthwise3x3_plain
+from dorknet_tpu_torch.ops.cuda.depthwise import (
+    depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain, depthwise3x3_dx,
+    depthwise3x3_dx_plain, depthwise3x3_plain)
+from dorknet_tpu_torch.optimisers import SGDMomentum
 from dorknet_tpu_torch.utils.seeded import seed_serving_weights
 
 DEVICE = "cuda"
@@ -55,6 +71,9 @@ BATCH = 64
 IMAGE = (3, 225, 225)
 NUM_CLASSES = 120
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published device-memory bandwidth
+FP32_FLOPS_PER_S = 67e12   # H100 SXM published fp32 rate outside the tensor cores
+TRAIN_LR = 0.05 * (BATCH / 200.0)  # the flagship example's rule
+KERNELS = (depthwise3x3, depthwise3x3_dx, depthwise3x3_dw)
 
 # the flagship's depthwise layers: (H = W, C, stride, how many layers)
 FLAGSHIP_DW = [
@@ -186,7 +205,7 @@ def phase_slice(net_cpu, runner, X):
     require(diff <= 1e-4, "GPU and CPU forwards disagree")
     with torch.inference_mode():
         x8 = torch.from_numpy(X[:8]).to(DEVICE)
-        logits = runner.network._run_layers(to_nhwc(x8))
+        logits, _, _ = runner.network._run_layers(to_nhwc(x8))
     log("  logits std {:.4f}, max prob of the first 8 images {}".format(
         logits.std().item(), [round(float(p), 4) for p in probs[:8].max(1)]))
     return launches
@@ -224,9 +243,31 @@ def dw_bytes(N, H, C, stride):
     return (N * H * H * C + N * Ho * Ho * C) * 4
 
 
+def dw_bound_ms(N, H, C, stride, extra_bytes=0):
+    """The least time of one depthwise 3x3 pass (forward, dx or dw) at batch
+    N in fp32: the larger of its bytes (the activation read and the one
+    written, or for dw the two read, each once) over the memory rate, and
+    its 18 flops per output element over the fp32 rate. Returns (ms, what
+    bounds it)."""
+    Ho = (H - 1) // stride + 1
+    t_bytes = (dw_bytes(N, H, C, stride) + extra_bytes) / HBM_BYTES_PER_S
+    t_ops = 18.0 * N * Ho * Ho * C / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flagship_bound_ms(extra_bytes_per_layer=lambda C: 0):
+    """(ms, what bounds it) summed over the flagship's 16 depthwise layers."""
+    total, by = 0.0, set()
+    for H, C, stride, n_layers in FLAGSHIP_DW:
+        ms, what = dw_bound_ms(BATCH, H, C, stride, extra_bytes_per_layer(C))
+        total += n_layers * ms
+        by.add(what)
+    return total, "bytes" if by == {"bytes"} else "operations"
+
+
 def phase_times(runner, X):
-    """Returns (kernel ms, plain ms) summed over the flagship's 16 depthwise
-    layers at batch 64, fp32."""
+    """Returns the kernel, plain and cuDNN ms summed over the flagship's 16
+    depthwise layers at batch 64, fp32."""
     card = card_line()
     log("== phase 5: times (CUDA events, median of 50 after 10 warm-ups)")
     log("card:", card)
@@ -286,7 +327,248 @@ def phase_times(runner, X):
     host_ms = statistics.median(host[2:])
     log("  InferenceRunner.predict_probs, batch {} (host clock, copies included, "
         "median of 10): {:.3f} ms = {:.0f} img/s".format(BATCH, host_ms, BATCH / host_ms * 1e3))
-    return totals["kernel"], totals["plain"]
+    return totals
+
+
+def grad_input(N, H, C, stride, dtype, seed):
+    """A seeded upstream gradient g for a depthwise layer's output."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    Ho = (H - 1) // stride + 1
+    return torch.randn(N, Ho, Ho, C, generator=g, device=DEVICE).to(dtype)
+
+
+def phase_bwd_vs_plain():
+    """Returns the largest fp32 max-abs errors of dx and dw at the
+    flagship's shapes."""
+    log("== phase 6: depthwise3x3_dx and depthwise3x3_dw kernels vs plain on the card")
+    log("  limits: dx as the forward (fp32 1e-5*max|dx|+1e-6; bf16 1e-2, equal sums "
+        "expected); dw 2e-5*sum|x*g| per tap and channel + 1e-6; dw twice bit-equal")
+    worst = {"dx": 0.0, "dw": 0.0}
+    cases = [(H, C, s, BATCH) for H, C, s, _ in FLAGSHIP_DW] + \
+            [(H, C, s, 4) for H, C, s in ODD_DW]
+    for i, (H, C, stride, N) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = dw_inputs(N, H, C, dtype, seed=200 + i)
+            g = grad_input(N, H, C, stride, dtype, seed=300 + i)
+            dx = depthwise3x3_dx(g, w, stride, H, H)
+            ref = depthwise3x3_dx_plain(g, w, stride, H, H)
+            dw = depthwise3x3_dw(x, g, stride)
+            dw2 = depthwise3x3_dw(x, g, stride)
+            dw_ref = depthwise3x3_dw_plain(x, g, stride)
+            scale = depthwise3x3_dw_plain(x.float().abs(), g.float().abs(), stride)
+            torch.cuda.synchronize()
+            require(dx.dtype == dtype and dx.shape == x.shape,
+                    "dx {} {}".format(dx.dtype, tuple(dx.shape)))
+            require(dw.dtype == torch.float32 and dw.shape == (C, 3, 3),
+                    "dw {} {}".format(dw.dtype, tuple(dw.shape)))
+            dx_err = (dx.float() - ref.float()).abs().max().item()
+            dx_scale = ref.float().abs().max().item()
+            dx_limit = 1e-5 * dx_scale + 1e-6 if dtype == torch.float32 else 1e-2
+            dw_diff = (dw - dw_ref).abs()
+            dw_err = dw_diff.max().item()
+            dw_ratio = (dw_diff / (2e-5 * scale + 1e-6)).max().item()
+            same = bool(torch.equal(dw, dw2))
+            if dtype == torch.float32 and N == BATCH:
+                worst["dx"] = max(worst["dx"], dx_err)
+                worst["dw"] = max(worst["dw"], dw_err)
+            log("  N={} {}x{}x{} s{} {}: dx max|err| {:.3e} (limit {:.3e}); dw max|err| "
+                "{:.3e}, {:.3f} of its limit, repeat bit-equal {}".format(
+                    N, H, H, C, stride, str(dtype).split(".")[1], dx_err, dx_limit,
+                    dw_err, dw_ratio, same))
+            require(dx_err <= dx_limit, "depthwise3x3_dx disagrees with its plain version")
+            require(dw_ratio <= 1.0, "depthwise3x3_dw disagrees with its plain version")
+            require(same, "two depthwise3x3_dw runs differ")
+    return worst
+
+
+def train_batches(seed, steps, B):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(steps, B, *IMAGE).astype(np.float32)
+    y = np.eye(NUM_CLASSES, dtype=np.float32)[rng.randint(0, NUM_CLASSES, (steps, B))]
+    return X, y
+
+
+def fresh_resnet18():
+    np.random.seed(0)
+    return ResNet18("dogs", num_classes=NUM_CLASSES)
+
+
+def phase_train():
+    """Returns the trainer and the launches of each kernel over its three
+    steps."""
+    log("== phase 7: ResNet18 trained by Trainer.step on the card")
+    net = fresh_resnet18()
+    trainer = Trainer(net, SGDMomentum(net, TRAIN_LR, 0.9), ema_decay=0.999, device=DEVICE)
+    X, y = train_batches(2, 3, BATCH)
+    for k in KERNELS:
+        k.launches = 0
+    for step in range(3):
+        before = [k.launches for k in KERNELS]
+        loss, preds = trainer.step(X[step], y[step])
+        torch.cuda.synchronize()
+        per_step = [k.launches - b for k, b in zip(KERNELS, before)]
+        log("  step {}: loss {:.6f}, launches forward/dx/dw {}".format(
+            step, float(loss), per_step))
+        require(per_step == [DW_LAYERS] * 3, "a depthwise layer missed a kernel")
+        require(np.isfinite(float(loss)), "non-finite loss")
+        require(tuple(preds.shape) == (BATCH,), "preds shape {}".format(tuple(preds.shape)))
+    launches = [k.launches for k in KERNELS]
+    require(all(l.bn_initialized() for l in net.layers), "a batch norm was not initialised")
+    require(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
+            "non-finite parameters")
+    require(all(bool(torch.isfinite(e).all()) for e in trainer._ema), "non-finite EMA")
+    log("  3 steps at batch {}: launches forward/dx/dw {} (want {} each)".format(
+        BATCH, launches, 3 * DW_LAYERS))
+    return trainer, launches
+
+
+def phase_train_twin():
+    """Two steps at batch 4 on the card and on the CPU from the same fresh
+    weights, with clip and EMA; returns nothing, raises on a mismatch."""
+    log("== phase 7b: the same training on the CPU (batch 4, clip 1.0, EMA 0.9)")
+    X, y = train_batches(3, 2, 4)
+    trainers = []
+    for device in (DEVICE, "cpu"):
+        net = fresh_resnet18()
+        trainers.append(Trainer(net, SGDMomentum(net, 0.05 * 4 / 200.0, 0.9),
+                                ema_decay=0.9, clip_norm=1.0, device=device))
+    for step in range(2):
+        got, want = (float(t.step(X[step], y[step])[0]) for t in trainers)
+        rel = abs(got - want) / abs(want)
+        log("  step {}: loss card {:.7f}, CPU {:.7f}, relative difference {:.3e} "
+            "(limit 1e-4)".format(step, got, want, rel))
+        require(rel <= 1e-4, "card and CPU losses disagree")
+    pairs = [(a, b) for a, b in zip(trainers[0].network.parameters(),
+                                    trainers[1].network.parameters(), strict=True)]
+    pairs += list(zip(trainers[0]._ema, trainers[1]._ema, strict=True))
+    worst_abs = max((a.detach().cpu() - b.detach()).abs().max().item() for a, b in pairs)
+    worst = max(((a.detach().cpu() - b.detach()).abs() / (1e-5 + 1e-4 * b.detach().abs()))
+                .max().item() for a, b in pairs)
+    log("  parameters and EMA after 2 steps: max|diff| {:.3e}, {:.3f} of the limit "
+        "(1e-4 relative + 1e-5 absolute)".format(worst_abs, worst))
+    require(worst <= 1.0, "card and CPU parameters disagree")
+
+
+def cudnn_grad(g, x, w, stride, mask):
+    """cuDNN's grouped-conv backward, the function autograd of
+    F.conv2d(groups=C) calls, on the channels-last views (a yardstick only)."""
+    return torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.unsqueeze(1), None,
+        [stride, stride], [1, 1], [1, 1], False, [0, 0], x.shape[3], mask)
+
+
+def phase_bwd_times():
+    """Returns {name: ms} summed over the flagship's 16 depthwise layers,
+    fp32, batch 64."""
+    log("== phase 8: backward kernel times (CUDA events, median of 50 after 10 warm-ups)")
+    log("card:", card_line())
+    log("  depthwise 3x3 backward, batch {}, fp32 unless noted; cuDNN is "
+        "aten.convolution_backward of F.conv2d(groups=C) on the channels-last "
+        "views, for reference".format(BATCH))
+    keys = ("dx", "dx_plain", "dx_cudnn", "dx_bf16", "dw", "dw_plain", "dw_cudnn", "dw_bf16")
+    totals = dict.fromkeys(keys, 0.0)
+    for i, (H, C, stride, n_layers) in enumerate(FLAGSHIP_DW):
+        x, w = dw_inputs(BATCH, H, C, torch.float32, seed=400 + i)
+        g = grad_input(BATCH, H, C, stride, torch.float32, seed=500 + i)
+        xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+        t = {
+            "dx": cuda_ms(lambda: depthwise3x3_dx(g, w, stride, H, H)),
+            "dx_plain": cuda_ms(lambda: depthwise3x3_dx_plain(g, w, stride, H, H)),
+            "dx_cudnn": cuda_ms(lambda: cudnn_grad(g, x, w, stride, [True, False, False])),
+            "dx_bf16": cuda_ms(lambda: depthwise3x3_dx(gb, w, stride, H, H)),
+            "dw": cuda_ms(lambda: depthwise3x3_dw(x, g, stride)),
+            "dw_plain": cuda_ms(lambda: depthwise3x3_dw_plain(x, g, stride)),
+            "dw_cudnn": cuda_ms(lambda: cudnn_grad(g, x, w, stride, [False, True, False])),
+            "dw_bf16": cuda_ms(lambda: depthwise3x3_dw(xb, gb, stride)),
+        }
+        for k in keys:
+            totals[k] += n_layers * t[k]
+        nbytes = dw_bytes(BATCH, H, C, stride)
+        log("  {}x{}x{} s{} (x{}): dx {:.4f} ms ({:.0f} GB/s), plain {:.4f}, cuDNN {:.4f}, "
+            "bf16 {:.4f} | dw {:.4f} ms ({:.0f} GB/s), plain {:.4f}, cuDNN {:.4f}, "
+            "bf16 {:.4f}".format(
+                H, H, C, stride, n_layers, t["dx"], nbytes / t["dx"] / 1e6, t["dx_plain"],
+                t["dx_cudnn"], t["dx_bf16"], t["dw"], nbytes / t["dw"] / 1e6,
+                t["dw_plain"], t["dw_cudnn"], t["dw_bf16"]))
+    bound, _ = flagship_bound_ms()
+    for k in ("dx", "dw"):
+        log("  16 layers per batch of {}: {} kernel {:.4f} ms, plain {:.4f} ms, cuDNN {:.4f} "
+            "ms, kernel bf16 {:.4f} ms; fp32 bound {:.4f} ms, the kernel reaches {:.1%} of "
+            "it".format(BATCH, k, totals[k], totals[k + "_plain"], totals[k + "_cudnn"],
+                        totals[k + "_bf16"], bound, bound / totals[k]))
+    return totals
+
+
+def kernel_class(name):
+    n = name.lower()
+    if "depthwise3x3_dx" in n:
+        return "depthwise dx"
+    if "depthwise3x3_dw" in n:
+        return "depthwise dw"
+    if "depthwise3x3_fwd" in n:
+        return "depthwise forward"
+    if "gemm" in n or "sm90_xmma" in n or "cutlass" in n or "cublas" in n:
+        return "GEMM"
+    if "conv" in n or "cudnn" in n or "dgrad" in n or "wgrad" in n:
+        return "cuDNN conv"
+    if "multi_tensor_apply" in n:
+        return "optimiser, clip and EMA (_foreach)"
+    return "elementwise and reductions"
+
+
+def phase_train_times(trainer):
+    """Trainer.step at batch 64 in fp32 and bf16 flow; returns the fp32 ms."""
+    log("== phase 8b: Trainer.step times (CUDA events around the step, median of 10 "
+        "after 3 warm-ups; batch already on the card)")
+    log("card:", card_line())
+    X, y = train_batches(4, 1, BATCH)
+    x = torch.from_numpy(X[0]).to(DEVICE)
+    yt = torch.from_numpy(y[0]).to(DEVICE)
+    ms32 = cuda_ms(lambda: trainer.step(x, yt), warmup=3, iters=10)
+    config.set_compute_dtype(torch.bfloat16)
+    try:
+        ms16 = cuda_ms(lambda: trainer.step(x, yt), warmup=3, iters=10)
+        loss16 = float(trainer.step(x, yt)[0])
+    finally:
+        config.set_compute_dtype(torch.float32)
+    require(np.isfinite(loss16), "non-finite bf16-flow loss")
+    log("  Trainer.step, batch {}: fp32 {:.3f} ms = {:.0f} img/s; bf16 flow {:.3f} ms = "
+        "{:.0f} img/s (loss {:.4f})".format(BATCH, ms32, BATCH / ms32 * 1e3, ms16,
+                                            BATCH / ms16 * 1e3, loss16))
+
+    steps = 3
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.step(x, yt)
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t0) * 1e3
+    by_class, by_name, n_kernels = {}, {}, 0
+    for evt in prof.key_averages():
+        # device-side events only (kernels, copies): a CPU op's device time
+        # is the same kernels' time again
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = evt.device_time_total
+        n_kernels += evt.count
+        cls = kernel_class(evt.key)
+        by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3 / steps
+        by_name[evt.key] = by_name.get(evt.key, 0.0) + dev_us / 1e3 / steps
+    busy = sum(by_class.values())
+    per_step = span_ms / steps
+    if busy == 0.0:
+        log("  profiler: no device time recorded")
+        return ms32
+    log("  profiler, fp32 step (host clock with the profiler on: {:.3f} ms a step): {} "
+        "kernels a step, busy {:.3f} ms, idle share {:.1%}".format(
+            per_step, n_kernels // steps, busy, max(0.0, 1.0 - busy / per_step)))
+    for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        log("    {:<30} {:8.3f} ms  {:5.1%}".format(cls, ms, ms / busy))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log("    top: {:8.3f} ms  {}".format(ms, name[:110]))
+    return ms32
 
 
 def main():
@@ -303,20 +585,37 @@ def main():
     net_cpu, net_gpu = build_nets()
     runner = InferenceRunner(net_gpu, batch_size=BATCH, device=DEVICE)
     X = np.random.RandomState(1).randn(150, *IMAGE).astype(np.float32)
-    launches = phase_slice(net_cpu, runner, X)
+    serve_launches = phase_slice(net_cpu, runner, X)
     phase_serving(runner, X)
-    kernel_ms, plain_ms = phase_times(runner, X)
+    fwd = phase_times(runner, X)
+    del runner, net_gpu, net_cpu
+    bwd_err = phase_bwd_vs_plain()
+    trainer, launches = phase_train()
+    phase_train_twin()
+    bwd = phase_bwd_times()
+    phase_train_times(trainer)
 
-    log(json.dumps({"kernels": [{
-        "name": "depthwise3x3",
-        "route": "cuda",
-        "source": "dorknet_tpu_torch/csrc/depthwise3x3.cu",
-        "replaces": "dorknet_tpu/ops/pallas/depthwise.py:192",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    bound_ms, bound_by = flagship_bound_ms()
+    dw_bound, dw_by = flagship_bound_ms(lambda C: 9 * C * 4)
+    entry = dict(route="cuda", replaces="dorknet_tpu/ops/pallas/depthwise.py:205")
+    log("  launches: serving run forward {}; training run forward/dx/dw {}".format(
+        serve_launches, launches))
+    log(json.dumps({"kernels": [
+        dict(name="depthwise3x3", route="cuda",
+             source="dorknet_tpu_torch/csrc/depthwise3x3.cu",
+             replaces="dorknet_tpu/ops/pallas/depthwise.py:192",
+             launches=launches[0], max_abs_err=max_err, ms=fwd["kernel"],
+             plain_ms=fwd["plain"], bound_ms=bound_ms, bound_by=bound_by,
+             library_ms=fwd["cudnn"]),
+        dict(name="depthwise3x3_dx", source="dorknet_tpu_torch/csrc/depthwise3x3_bwd.cu",
+             launches=launches[1], max_abs_err=bwd_err["dx"], ms=bwd["dx"],
+             plain_ms=bwd["dx_plain"], bound_ms=bound_ms, bound_by=bound_by,
+             library_ms=bwd["dx_cudnn"], **entry),
+        dict(name="depthwise3x3_dw", source="dorknet_tpu_torch/csrc/depthwise3x3_bwd.cu",
+             launches=launches[2], max_abs_err=bwd_err["dw"], ms=bwd["dw"],
+             plain_ms=bwd["dw_plain"], bound_ms=dw_bound, bound_by=dw_by,
+             library_ms=bwd["dw_cudnn"], **entry),
+    ]}))
     log("card:", card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

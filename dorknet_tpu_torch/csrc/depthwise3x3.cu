@@ -1,4 +1,5 @@
-// Depthwise 3x3 convolution, padding 1, stride 1 or 2, NHWC, forward only.
+// Depthwise 3x3 convolution, padding 1, stride 1 or 2, NHWC, forward (the
+// backward is depthwise3x3_bwd.cu).
 //
 // Replaces: dorknet_tpu/ops/pallas/depthwise.py, function depthwise3x3 and
 // its two Pallas bodies _fwd_kernel (stride 1) and _fwd2_kernel (stride 2).
@@ -30,21 +31,9 @@
 // stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() after the launch.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);  // round to nearest even
-}
 
 // Idx is the type of the flat output index and of its decomposition into
 // (n, ho, wo, c): uint32_t whenever the output has fewer than 2^32
@@ -110,18 +99,10 @@ cudaError_t launch(const void* x, const void* w, void* y, int N, int H, int W,
     const int64_t total = (int64_t)N * Ho * Wo * C;
     if (total == 0) return cudaSuccess;
 
-    int device = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-
     const int threads = 256;
-    // enough blocks to fill every SM several times over; the grid-stride
-    // loop covers the rest
-    const int64_t want = (total + threads - 1) / threads;
-    const int64_t cap = (int64_t)sms * 16;
-    const int blocks = (int)(want < cap ? want : cap);
+    int blocks = 0;
+    const cudaError_t err = grid_stride_blocks(total, threads, &blocks);
+    if (err != cudaSuccess) return err;
 
     const T* xp = static_cast<const T*>(x);
     const float* wp = static_cast<const float*>(w);

@@ -11,7 +11,7 @@ class ReLu(Layer):
     def __repr__(self):
         return "ReLu({})".format(self.layer_name)
 
-    def fapply(self, x):
+    def fapply(self, x, train=False):
         return torch.relu(x)
 
     def load_from_h5(self, open_f):
@@ -25,7 +25,7 @@ class IdentityLayer(Layer):
     def __repr__(self):
         return "IdentityLayer({})".format(self.layer_name)
 
-    def fapply(self, x):
+    def fapply(self, x, train=False):
         return x
 
     def load_from_h5(self, open_f):

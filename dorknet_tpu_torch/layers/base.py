@@ -2,14 +2,19 @@
 
 Layers are ``nn.Module``s. Learned parameters are ``nn.Parameter``s and batch
 norm's running statistics are buffers, in the reference layouts the JAX
-package keeps. Every layer implements ``fapply(x)``, the test-mode apply over
-NHWC activations (4-D) or (N,C); the network composes those. Activations
-cross the public API in the reference's NCHW layout and are NHWC-contiguous
-inside. Train mode comes with the training slice.
+package keeps. Every layer implements ``fapply(x, train=False)`` over NHWC
+activations (4-D) or (N,C); the network composes those. In train mode batch
+norm normalises by the batch statistics and updates its running statistics
+in place; every other layer computes the same function in both modes.
+Activations cross the public API in the reference's NCHW layout and are
+NHWC-contiguous inside.
 
-``get_params``/``get_state`` return the JAX package's tree shapes (a dict per
-layer); ``set_params``/``set_state`` fill the parameters and buffers from
-such trees of numpy arrays, without transposing anything.
+``get_params``/``get_state``/``get_grads`` return the JAX package's tree
+shapes (a dict per layer); ``set_params``/``set_state`` fill the parameters
+and buffers from such trees of numpy arrays, without transposing anything.
+``reg_loss`` is the regularisation term the reference reports and
+``reg_loss_full`` the one its applied gradient contains (they differ only in
+``ResidualBlock``).
 """
 
 import numpy as np
@@ -38,17 +43,30 @@ def copy_into(t, value, what):
 
 
 class Layer(nn.Module):
+    weight_regulariser = None
+
     def __init__(self, layer_name):
         super().__init__()
         self.layer_name = layer_name
+        self.grads = {}  # name -> gradient of the last network backward()
 
     def __repr__(self):
         return "Layer of type {} didn't implement __repr__".format(
             self.__class__.__name__)
 
-    def fapply(self, x):
-        """Test-mode apply: x NHWC (4-D) or (N,C). Returns y."""
+    def fapply(self, x, train=False):
+        """Apply to x, NHWC (4-D) or (N,C). Returns y."""
         raise NotImplementedError
+
+    def reg_loss(self):
+        """The regularisation term this layer reports (0.0 without one)."""
+        if self.weight_regulariser is not None:
+            return self.weight_regulariser.forward(self.weights)
+        return 0.0
+
+    def reg_loss_full(self):
+        """Every regularisation term this layer's gradient contains."""
+        return self.reg_loss()
 
     def get_params(self):
         """This layer's learned parameters by name (no copy)."""
@@ -57,6 +75,15 @@ class Layer(nn.Module):
     def set_params(self, tree):
         for name, p in self.named_parameters(recurse=False):
             copy_into(p, tree[name], "{}/{}".format(self.layer_name, name))
+
+    def get_grads(self):
+        """The gradients the last ``network.backward()`` set, by name, in
+        the shape of ``get_params()`` ({} before one)."""
+        return dict(self.grads)
+
+    def set_grads(self, tree):
+        self.grads = {name: tree[name] for name, _ in self.named_parameters(recurse=False)
+                      if name in tree}
 
     def get_state(self):
         """Non-learned state (batch-norm running stats); stateless layers {}."""

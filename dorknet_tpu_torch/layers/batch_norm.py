@@ -1,12 +1,13 @@
-"""Batch normalisation layer, test mode (counterpart of
+"""Batch normalisation layer (counterpart of
 ``dorknet_tpu/layers/batch_norm.py``).
 
 gamma/beta are stored in the reference's broadcast shape, (1,C,1,1) for a
 4-D input and (C,) for a 2-D one, and so are the running mean and running
 **std** (eps folded in). The running stats are buffers that stay unset until
-a checkpoint or ``set_state`` provides them; a forward before that raises.
-Train mode, with the reference's running-std EMA, comes with the training
-slice."""
+the first training batch, a checkpoint or ``set_state`` provides them; a
+test-mode forward before that raises. A train-mode forward normalises by the
+batch statistics; the first one adopts them as the running stats, later ones
+fold them in with the running-std EMA at ``run_momentum`` (0.95)."""
 
 import numpy as np
 import torch
@@ -14,7 +15,7 @@ from torch import nn
 
 from dorknet_tpu_torch.layers.base import Layer
 from dorknet_tpu_torch.layers.registry import register_layer
-from dorknet_tpu_torch.ops.norm import batch_norm_inference
+from dorknet_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train
 
 
 @register_layer
@@ -64,7 +65,19 @@ class BatchNormLayer(Layer):
                     self.layer_name, name, shape, v.shape))
             setattr(self, name, torch.from_numpy(v.copy()).to(device))
 
-    def fapply(self, x):
+    def fapply(self, x, train=False):
+        if train:
+            y, mean, std = batch_norm_train(
+                x, self.gamma.reshape(-1), self.beta.reshape(-1),
+                None if self.running_mean is None else self.running_mean.reshape(-1),
+                None if self.running_std is None else self.running_std.reshape(-1),
+                momentum=self.run_momentum, eps=self.eps,
+                initialized=self.bn_initialized())
+            shape = self._state_shape()
+            with torch.no_grad():
+                self.running_mean = mean.reshape(shape)
+                self.running_std = std.reshape(shape)
+            return y
         if self.running_mean is None:
             raise ValueError(
                 "BatchNormLayer '{}' has no running statistics; load a "

@@ -41,7 +41,7 @@ class ConvLayer(Layer):
             self.stride, self.padding, self.with_bias, self.weight_regulariser)
         return out
 
-    def fapply(self, x):
+    def fapply(self, x, train=False):
         b = self.bias if self.with_bias else None
         return conv2d(x, self.weights, b, stride=self.stride, padding=self.padding)
 

@@ -32,7 +32,7 @@ class DenseLayer(Layer):
             self.layer_name, self.incoming_chans, self.output_dim,
             repr(self.weight_regulariser))
 
-    def fapply(self, x):
+    def fapply(self, x, train=False):
         b = self.bias if self.with_bias else None
         return dense(x, self.weights, b)
 

@@ -42,7 +42,7 @@ class PointwiseConvLayer(Layer):
             self.stride, self.with_bias, repr(self.weight_regulariser))
         return out
 
-    def fapply(self, x):
+    def fapply(self, x, train=False):
         b = self.bias if self.with_bias else None
         return pointwise_conv2d(x, self.weights, b, stride=self.stride)
 

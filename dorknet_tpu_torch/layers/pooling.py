@@ -12,7 +12,7 @@ class GlobalAveragePoolingLayer(Layer):
     def __repr__(self):
         return "GlobalAveragePoolingLayer({})".format(self.layer_name)
 
-    def fapply(self, x):
+    def fapply(self, x, train=False):
         return global_avg_pool(x)
 
     def load_from_h5(self, open_f):

@@ -1,9 +1,13 @@
 """Residual block (counterpart of ``dorknet_tpu/layers/residual_block.py``):
 ``layer_list`` runs in sequence, ``skip_projection`` (or identity) bridges
 the input, the two join by addition and ``post_skip_activation`` follows.
-Parameter and state trees are ``{"layers": [...], "skip": {...}, "act":
-{...}}``, as in the JAX package; the h5 schema (flat-namespace children plus
-attr-encoded structure) is the reference's."""
+Parameter, state and gradient trees are ``{"layers": [...], "skip": {...},
+"act": {...}}``, as in the JAX package; the h5 schema (flat-namespace
+children plus attr-encoded structure) is the reference's.
+
+One reference quirk is kept on purpose: the reported regularisation
+(``reg_loss``) sums over ``layer_list`` only, while the applied gradient
+also carries the skip projection's term (``reg_loss_full``)."""
 
 from torch import nn
 
@@ -55,6 +59,31 @@ class ResidualBlock(Layer):
     def get_state(self):
         return self._tree(lambda l: l.get_state())
 
+    def get_grads(self):
+        return self._tree(lambda l: l.get_grads())
+
+    def set_grads(self, tree):
+        for l, t in zip(self.layer_list, tree["layers"], strict=True):
+            l.set_grads(t)
+        if self.skip_projection is not None:
+            self.skip_projection.set_grads(tree["skip"])
+        self.post_skip_activation.set_grads(tree["act"])
+
+    def reg_loss(self):
+        """The reference's accounting: layer_list only."""
+        total = 0.0
+        for l in self.layer_list:
+            total = total + l.reg_loss()
+        return total
+
+    def reg_loss_full(self):
+        """Every regulariser, the skip projection's included: what the
+        reference's applied gradient contains."""
+        total = self.reg_loss()
+        if self.skip_projection is not None:
+            total = total + self.skip_projection.reg_loss()
+        return total
+
     def set_params(self, tree):
         for l, t in zip(self.layer_list, tree["layers"], strict=True):
             l.set_params(t)
@@ -69,12 +98,14 @@ class ResidualBlock(Layer):
             self.skip_projection.set_state(tree["skip"])
         self.post_skip_activation.set_state(tree["act"])
 
-    def fapply(self, x):
+    def fapply(self, x, train=False):
         h = x
         for l in self.layer_list:
-            h = l.fapply(h)
-        skip = self.skip_projection.fapply(x) if self.skip_projection is not None else x
-        return self.post_skip_activation.fapply(h + skip)
+            h = l.fapply(h, train)
+        skip = x
+        if self.skip_projection is not None:
+            skip = self.skip_projection.fapply(x, train)
+        return self.post_skip_activation.fapply(h + skip, train)
 
     def load_from_h5(self, open_f):
         info = open_f[self.layer_name + "/layer_info"].attrs

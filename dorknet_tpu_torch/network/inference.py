@@ -3,8 +3,9 @@
 
 Every dispatch runs one fixed batch shape: ragged tails are padded with
 zeros and sliced off, so each kernel sees the same shapes on every call. The
-network is moved to an explicit device once; each batch is copied there, run
-under ``torch.inference_mode()``, and the probabilities come back as numpy.
+network is moved to the runner's device once (the card unless the caller
+asks for the CPU); each batch is copied there, run under
+``torch.inference_mode()``, and the probabilities come back as numpy.
 BN folding, ``predict_iter`` and program export come with a later slice.
 """
 
@@ -12,15 +13,26 @@ import numpy as np
 import torch
 
 
+def resolve_device(device, who):
+    """torch.device(device); a CUDA device without a usable card raises, so
+    an entry point never carries on on the CPU unless asked to."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "{} runs on {} by default, but no CUDA device is available; pass "
+            "device='cpu' to run on the CPU".format(who, device))
+    return device
+
+
 class InferenceRunner:
-    def __init__(self, network, batch_size, device=None, fold_bn=False):
-        """device: where the network runs (default: where its parameters
-        are). The network is moved there in place."""
+    def __init__(self, network, batch_size, device="cuda", fold_bn=False):
+        """device: where the network runs, the card by default. The network
+        is moved there in place."""
         if fold_bn:
             raise NotImplementedError(
                 "fold_bn is not ported yet; build the runner with fold_bn=False")
         network._require_bn_initialized("InferenceRunner")
-        self.device = torch.device(device) if device is not None else network.device()
+        self.device = resolve_device(device, "InferenceRunner")
         self.network = network.to(self.device)
         self.batch_size = int(batch_size)
 

@@ -8,12 +8,16 @@ added in fp32.
 
 - ``conv2d`` is ``F.conv2d``; the JAX package leaves it to XLA's conv.
 - ``depthwise_conv2d`` sends every 3x3 / padding 1 / stride 1-or-2 case to
-  the hand-written kernel (``ops/cuda/depthwise.py``), like the JAX package's
-  Pallas dispatch. Any other shape takes ``F.conv2d(groups=C)``, the JAX
-  package's own XLA path for shapes its kernel does not take. The choice is
-  made by shape alone.
+  the hand-written kernels (``ops/cuda/depthwise.py``: the forward, and in
+  training the autograd Function whose backward runs the dx and dw
+  kernels), like the JAX package's Pallas dispatch. Any other shape takes
+  ``F.conv2d(groups=C)``, the JAX package's own XLA path for shapes its
+  kernel does not take. The choice is made by shape alone.
 - ``pointwise_conv2d`` and ``dense`` are ``torch.matmul``; stride > 1
   subsamples first (output spatial size ceil(H/s)), as the reference does.
+
+Everything but the depthwise kernels is differentiated by autograd, as the
+JAX package leaves those ops to XLA's autodiff.
 """
 
 import torch

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 At first use, every ``.cu`` file under ``dorknet_tpu_torch/csrc/`` is
-compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library with a
-plain C interface, which is loaded with ``ctypes``. No PyTorch headers are
-involved, so the build takes seconds. The library lands in
+compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` process per
+source, all started together, and the objects are linked into one shared
+library with a plain C interface, which is loaded with ``ctypes``. No PyTorch
+headers are involved, so the build takes seconds. The library lands in
 ``build/dorknet_tpu_torch_kernels/`` at the root of the checkout, and its file
 name carries a hash of the sources and flags, so an edited source rebuilds.
 
@@ -27,7 +28,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "dorknet_tpu_torch_kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 @dataclass(frozen=True)
@@ -61,6 +62,12 @@ def _bind(lib):
     lib.dorknet_depthwise3x3_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
                                              ci, vp, ci]
     lib.dorknet_depthwise3x3_fwd.restype = ci
+    lib.dorknet_depthwise3x3_dx.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
+                                            ci, vp, ci]
+    lib.dorknet_depthwise3x3_dx.restype = ci
+    lib.dorknet_depthwise3x3_dw.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                            ci, ci, ci, vp, ci]
+    lib.dorknet_depthwise3x3_dw.restype = ci
     lib.dorknet_cuda_error_string.argtypes = [ci]
     lib.dorknet_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -79,22 +86,37 @@ def load_library():
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = [str(s) for s in sources if s.suffix == ".cu"]
-        # build to a temporary name and rename, so a concurrent process never
-        # loads a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
+        # build in a private directory and rename the library into place, so
+        # a concurrent process never loads a half-written one
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            log = _compile([s for s in sources if s.suffix == ".cu"],
+                           Path(tmp), Path(tmp) / "lib.so")
+            os.replace(Path(tmp) / "lib.so", path)
         seconds = time.perf_counter() - t0
-        log = proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError("nvcc failed (exit {}):\n{}{}".format(
-                proc.returncode, proc.stdout, proc.stderr))
-        os.replace(tmp, path)
     return KernelLibrary(_bind(ctypes.CDLL(str(path))), path, seconds, log)
+
+
+def _run_all(commands):
+    """Start every command at once, wait for all of them, and raise with the
+    stderr of those that failed. Returns the stderr of all, joined."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in commands]
+    outs = [p.communicate() for p in procs]
+    failed = ["{} (exit {}):\n{}{}".format(" ".join(cmd), p.returncode, out, err)
+              for cmd, p, (out, err) in zip(commands, procs, outs) if p.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return "".join(err for _, err in outs)
+
+
+def _compile(cu_sources, tmp_dir, out):
+    """One ``nvcc -c`` per source, in parallel, then one link into ``out``."""
+    nvcc = _find_nvcc()
+    objs = [tmp_dir / (src.stem + ".o") for src in cu_sources]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(cu_sources, objs)])
+    return log + _run_all([[nvcc, "-shared", "-o", str(out), *map(str, objs)]])
 
 
 def check(lib, err, what):

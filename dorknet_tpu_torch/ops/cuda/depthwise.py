@@ -1,13 +1,21 @@
-"""Depthwise 3x3 convolution (padding 1, stride 1 or 2) over NHWC tensors.
+"""Depthwise 3x3 convolution (padding 1, stride 1 or 2) over NHWC tensors,
+forward and backward.
 
-``depthwise3x3`` is the wrapper of the hand-written CUDA kernel in
-``csrc/depthwise3x3.cu``, which replaces the Pallas kernel
-``dorknet_tpu/ops/pallas/depthwise.py:depthwise3x3``. On a CUDA tensor it
-launches the kernel, or raises; on a CPU tensor it computes the same function
-with ``depthwise3x3_plain``. Nothing sends a CUDA tensor to the plain version.
+Three hand-written CUDA kernels replace the Pallas kernel
+``dorknet_tpu/ops/pallas/depthwise.py:depthwise3x3`` and its custom VJP
+``_depthwise_bwd``:
 
-The kernel has no backward yet: the training slice wraps the backward
-kernels in a ``torch.autograd.Function``.
+- ``depthwise3x3`` (``csrc/depthwise3x3.cu``): the forward;
+- ``depthwise3x3_dx`` (``csrc/depthwise3x3_bwd.cu``): the gradient of x, the
+  forward's transpose read directly;
+- ``depthwise3x3_dw`` (the same file): the gradient of w, a nine-tap
+  reduction in two passes, deterministic.
+
+On a CUDA tensor each wrapper launches its kernel, or raises; on a CPU tensor
+it computes the same function with its plain PyTorch version (``*_plain``).
+Nothing sends a CUDA tensor to a plain version. ``Depthwise3x3Fn`` joins the
+three for autograd, and ``depthwise3x3`` goes through it whenever a gradient
+is needed. Each wrapper counts the launches of its kernel in ``.launches``.
 """
 
 import torch
@@ -17,40 +25,86 @@ from dorknet_tpu_torch.ops.cuda.build import check, load_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# dw pass 1 aims at this many blocks per SM (see csrc/depthwise3x3_bwd.cu)
+_DW_BLOCKS_PER_SM = 8
+
 
 def _out_hw(H, W, stride):
     return (H - 1) // stride + 1, (W - 1) // stride + 1
 
 
-def _validate(x, w, stride):
+def _acc_dtype(t):
+    """The plain versions sum in fp32, or in fp64 for fp64 inputs (the
+    finite-difference checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _check_stride(stride):
     if stride not in (1, 2):
         raise ValueError("depthwise3x3: stride must be 1 or 2, got {}".format(stride))
-    if x.dim() != 4:
-        raise ValueError("depthwise3x3: x must be (N,H,W,C), got shape {}".format(
-            tuple(x.shape)))
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError("depthwise3x3: x must be float32 or bfloat16, got {}".format(
-            x.dtype))
-    if not x.is_contiguous():
-        raise ValueError("depthwise3x3: x must be contiguous NHWC")
-    C = x.shape[3]
+
+
+def _check_act(t, what):
+    if t.dim() != 4:
+        raise ValueError("depthwise3x3: {} must be (N,H,W,C), got shape {}".format(
+            what, tuple(t.shape)))
+    if t.dtype not in _DTYPE_CODE:
+        raise TypeError("depthwise3x3: {} must be float32 or bfloat16, got {}".format(
+            what, t.dtype))
+    if not t.is_contiguous():
+        raise ValueError("depthwise3x3: {} must be contiguous NHWC".format(what))
+
+
+def _check_w(w, t, what):
+    """w must be the contiguous float32 (C,3,3) filter of activation t."""
+    C = t.shape[3]
     if tuple(w.shape) != (C, 3, 3) or w.dtype != torch.float32:
         raise ValueError("depthwise3x3: w must be float32 ({}, 3, 3), got {} {}".format(
             C, w.dtype, tuple(w.shape)))
     if not w.is_contiguous():
         raise ValueError("depthwise3x3: w must be contiguous")
-    if w.device != x.device:
-        raise ValueError("depthwise3x3: x on {} but w on {}".format(x.device, w.device))
+    if w.device != t.device:
+        raise ValueError("depthwise3x3: {} on {} but w on {}".format(
+            what, t.device, w.device))
 
 
+def _validate(x, w, stride):
+    _check_stride(stride)
+    _check_act(x, "x")
+    _check_w(w, x, "x")
+
+
+def _validate_grad(g, x_shape, dtype, device, stride):
+    """g (already checked by _check_act) must be the (N,Ho,Wo,C) gradient of
+    the forward's output."""
+    N, H, W, C = x_shape
+    want = (N, *_out_hw(H, W, stride), C)
+    if tuple(g.shape) != want or g.dtype != dtype or g.device != device:
+        raise ValueError("depthwise3x3: g must be {} {} on {}, got {} {} on {}".format(
+            dtype, want, device, g.dtype, tuple(g.shape), g.device))
+
+
+def _require_cuda(t):
+    if t.device.type != "cuda":
+        raise ValueError("depthwise3x3: unsupported device {}".format(t.device))
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------- #
+# Plain PyTorch versions (the CPU path, and what the kernels are held to)
+# ---------------------------------------------------------------------- #
 def depthwise3x3_plain(x, w, stride):
-    """The same function in plain PyTorch: pad 1, then nine shifted and
-    strided slices times the weights, summed in fp32, cast back to x's
-    dtype. x: (N,H,W,C); w: (C,3,3) fp32."""
+    """The forward in plain PyTorch: pad 1, then nine shifted and strided
+    slices times the weights, summed in fp32, cast back to x's dtype.
+    x: (N,H,W,C); w: (C,3,3) fp32."""
     N, H, W, C = x.shape
     Ho, Wo = _out_hw(H, W, stride)
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-    acc = torch.zeros((N, Ho, Wo, C), dtype=torch.float32, device=x.device)
+    acc_dtype = _acc_dtype(x)
+    xp = F.pad(x.to(acc_dtype), (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros((N, Ho, Wo, C), dtype=acc_dtype, device=x.device)
     for di in range(3):
         for dj in range(3):
             tap = xp[:, di:di + stride * (Ho - 1) + 1:stride,
@@ -59,19 +113,45 @@ def depthwise3x3_plain(x, w, stride):
     return acc.to(x.dtype)
 
 
-def depthwise3x3(x, w, stride=1):
-    """Depthwise 3x3, padding 1, stride 1 or 2. x: (N,H,W,C) contiguous,
-    float32 or bfloat16; w: (C,3,3) float32. Returns (N,Ho,Wo,C) in x's dtype,
-    accumulated in fp32. Bias is the caller's."""
-    _validate(x, w, stride)
+def depthwise3x3_dx_plain(g, w, stride, H, W):
+    """dx in plain PyTorch, as the forward's transpose: each tap's product
+    g * w[:, di, dj] is added back onto the padded x grid at the strided
+    positions that tap read, and the padding is cropped. g: (N,Ho,Wo,C);
+    returns (N,H,W,C) in g's dtype."""
+    N, Ho, Wo, C = g.shape
+    acc_dtype = _acc_dtype(g)
+    gf = g.to(acc_dtype)
+    acc = torch.zeros((N, H + 2, W + 2, C), dtype=acc_dtype, device=g.device)
+    for di in range(3):
+        for dj in range(3):
+            acc[:, di:di + stride * (Ho - 1) + 1:stride,
+                dj:dj + stride * (Wo - 1) + 1:stride, :] += gf * w[:, di, dj]
+    return acc[:, 1:H + 1, 1:W + 1, :].to(g.dtype).contiguous()
+
+
+def depthwise3x3_dw_plain(x, g, stride):
+    """dw in plain PyTorch: for each of the nine taps, the strided slice of
+    the padded x times g, summed over (N, Ho, Wo). Returns (C,3,3) in fp32
+    (fp64 for fp64 inputs)."""
+    N, Ho, Wo, C = g.shape
+    acc_dtype = _acc_dtype(x)
+    xp = F.pad(x.to(acc_dtype), (0, 0, 1, 1, 1, 1))
+    gf = g.to(acc_dtype)
+    taps = [(xp[:, di:di + stride * (Ho - 1) + 1:stride,
+                dj:dj + stride * (Wo - 1) + 1:stride, :] * gf).sum(dim=(0, 1, 2))
+            for di in range(3) for dj in range(3)]
+    return torch.stack(taps, dim=1).reshape(C, 3, 3)
+
+
+# ---------------------------------------------------------------------- #
+# Kernel wrappers
+# ---------------------------------------------------------------------- #
+def _forward(x, w, stride):
+    """The forward on x's device: the plain version for a CPU tensor, the
+    kernel for a CUDA one."""
     if x.device.type == "cpu":
         return depthwise3x3_plain(x, w, stride)
-    if x.device.type != "cuda":
-        raise ValueError("depthwise3x3: unsupported device {}".format(x.device))
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "depthwise3x3 has no CUDA backward yet; it comes with the training "
-            "slice. Run the forward under torch.inference_mode() or no_grad().")
+    _require_cuda(x)
     N, H, W, C = x.shape
     Ho, Wo = _out_hw(H, W, stride)
     y = torch.empty((N, Ho, Wo, C), dtype=x.dtype, device=x.device)
@@ -80,11 +160,115 @@ def depthwise3x3(x, w, stride=1):
     kernels = load_library()
     err = kernels.lib.dorknet_depthwise3x3_fwd(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), N, H, W, C, stride,
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
-        x.device.index)
+        _DTYPE_CODE[x.dtype], _stream(x), x.device.index)
     check(kernels.lib, err, "depthwise3x3 launch")
     depthwise3x3.launches += 1
     return y
 
 
+def depthwise3x3_dx(g, w, stride, H, W):
+    """Gradient of x. g: (N,Ho,Wo,C) contiguous, float32 or bfloat16;
+    w: (C,3,3) float32; (H, W) the forward input's size. Returns (N,H,W,C)
+    in g's dtype, accumulated in fp32."""
+    _check_stride(stride)
+    _check_act(g, "g")
+    _check_w(w, g, "g")
+    N, _, _, C = g.shape
+    _validate_grad(g, (N, H, W, C), g.dtype, g.device, stride)
+    if g.device.type == "cpu":
+        return depthwise3x3_dx_plain(g, w, stride, H, W)
+    _require_cuda(g)
+    dx = torch.empty((N, H, W, C), dtype=g.dtype, device=g.device)
+    if dx.numel() == 0:
+        return dx
+    kernels = load_library()
+    err = kernels.lib.dorknet_depthwise3x3_dx(
+        g.data_ptr(), w.data_ptr(), dx.data_ptr(), N, H, W, C, stride,
+        _DTYPE_CODE[g.dtype], _stream(g), g.device.index)
+    check(kernels.lib, err, "depthwise3x3_dx launch")
+    depthwise3x3_dx.launches += 1
+    return dx
+
+
+def dw_bands(N, Ho, Wo, C, sms):
+    """How many bands of the N*Ho*Wo output pixels dw's first pass splits the
+    reduction into: about ``_DW_BLOCKS_PER_SM`` blocks per SM over the
+    channel tiles, at least 64 pixels a band, at most 65535 bands."""
+    tiles = -(-C // 32)
+    want = -(-_DW_BLOCKS_PER_SM * sms // tiles)
+    return max(1, min(want, -(-N * Ho * Wo // 64), 65535))
+
+
+def depthwise3x3_dw(x, g, stride):
+    """Gradient of w. x: (N,H,W,C) and g: (N,Ho,Wo,C), contiguous, both
+    float32 or both bfloat16. Returns (C,3,3) float32. Deterministic: the
+    same inputs give bit-equal results."""
+    _check_stride(stride)
+    _check_act(x, "x")
+    _check_act(g, "g")
+    _validate_grad(g, tuple(x.shape), x.dtype, x.device, stride)
+    if x.device.type == "cpu":
+        return depthwise3x3_dw_plain(x, g, stride)
+    _require_cuda(x)
+    N, H, W, C = x.shape
+    Ho, Wo = _out_hw(H, W, stride)
+    if g.numel() == 0:
+        return torch.zeros((C, 3, 3), dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    P = dw_bands(N, Ho, Wo, C, sms)
+    partials = torch.empty((P, 9, C), dtype=torch.float32, device=x.device)
+    dw = torch.empty((C, 3, 3), dtype=torch.float32, device=x.device)
+    kernels = load_library()
+    err = kernels.lib.dorknet_depthwise3x3_dw(
+        x.data_ptr(), g.data_ptr(), partials.data_ptr(), dw.data_ptr(),
+        N, H, W, C, stride, P, _DTYPE_CODE[x.dtype], _stream(x), x.device.index)
+    check(kernels.lib, err, "depthwise3x3_dw launch")
+    depthwise3x3_dw.launches += 1
+    return dw
+
+
+class Depthwise3x3Fn(torch.autograd.Function):
+    """Depthwise 3x3 with the hand-written backward: the counterpart of the
+    JAX package's ``jax.custom_vjp`` on ``depthwise3x3``. On CUDA tensors
+    the forward, dx and dw kernels launch; on CPU tensors their plain
+    versions run (in fp64 too, for finite-difference checks)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.stride = stride
+        ctx.save_for_backward(x, w)
+        return _forward(x, w, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        s = ctx.stride
+        g = g.contiguous()
+        dx = dw = None
+        if x.device.type == "cpu":
+            if ctx.needs_input_grad[0]:
+                dx = depthwise3x3_dx_plain(g, w, s, x.shape[1], x.shape[2])
+            if ctx.needs_input_grad[1]:
+                dw = depthwise3x3_dw_plain(x, g, s).to(w.dtype)
+            return dx, dw, None
+        if ctx.needs_input_grad[0]:
+            dx = depthwise3x3_dx(g, w, s, x.shape[1], x.shape[2])
+        if ctx.needs_input_grad[1]:
+            dw = depthwise3x3_dw(x, g, s)
+        return dx, dw, None
+
+
+def depthwise3x3(x, w, stride=1):
+    """Depthwise 3x3, padding 1, stride 1 or 2. x: (N,H,W,C) contiguous,
+    float32 or bfloat16; w: (C,3,3) float32. Returns (N,Ho,Wo,C) in x's
+    dtype, accumulated in fp32. Bias is the caller's. Differentiable: with a
+    gradient needed it runs through ``Depthwise3x3Fn``."""
+    _validate(x, w, stride)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return Depthwise3x3Fn.apply(x, w, stride)
+    return _forward(x, w, stride)
+
+
 depthwise3x3.launches = 0
+depthwise3x3_dx.launches = 0
+depthwise3x3_dw.launches = 0

@@ -1,0 +1,21 @@
+"""SGD with momentum in the reference's velocity form (counterpart of
+``dorknet_tpu/optimisers/SGDMomentum.py``):
+
+    dx = -lr * g + momentum * v ;  W += dx ;  v = dx
+"""
+
+import torch
+
+from dorknet_tpu_torch.optimisers.base import Optimiser
+
+
+class SGDMomentum(Optimiser):
+    def __init__(self, network, learning_rate, momentum):
+        super().__init__(network, learning_rate)
+        self.momentum = momentum
+
+    def apply_update(self, params, grads, cache, lr):
+        dx = torch._foreach_mul(grads, -lr)
+        torch._foreach_add_(dx, torch._foreach_mul(cache, self.momentum))
+        torch._foreach_add_(params, dx)
+        return dx

@@ -1,0 +1,5 @@
+from dorknet_tpu_torch.optimisers.SGD import SGD
+from dorknet_tpu_torch.optimisers.SGDMomentum import SGDMomentum
+from dorknet_tpu_torch.optimisers.RMSProp import RMSProp
+
+__all__ = ["SGD", "SGDMomentum", "RMSProp"]

@@ -1,8 +1,9 @@
-"""L2 weight regulariser (counterpart of ``dorknet_tpu/regularisers/l2.py``).
+"""L2 weight regulariser (counterpart of ``dorknet_tpu/regularisers/l2.py``):
+the loss term 0.5·s·Σw² and its gradient s·w. The network adds every
+layer's term to the differentiated objective, so autograd applies s·w;
+``backward`` states the same gradient in closed form."""
 
-Metadata only in this slice: its type and strength appear in layer ``repr``s
-and in the h5 attrs. The loss term and gradient come with the training slice.
-"""
+import torch
 
 
 class l2:
@@ -12,3 +13,9 @@ class l2:
 
     def __repr__(self):
         return "l2(strength={})".format(self.strength)
+
+    def forward(self, X):
+        return 0.5 * self.strength * torch.sum(torch.square(X))
+
+    def backward(self, X):
+        return self.strength * X

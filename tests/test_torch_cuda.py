@@ -11,7 +11,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from dorknet_tpu_torch.models import ResNet18  # noqa: E402
-from dorknet_tpu_torch.ops.cuda.depthwise import depthwise3x3, depthwise3x3_plain  # noqa: E402
+from dorknet_tpu_torch.network import Trainer  # noqa: E402
+from dorknet_tpu_torch.ops.cuda.depthwise import (  # noqa: E402
+    depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain, depthwise3x3_dx,
+    depthwise3x3_dx_plain, depthwise3x3_plain)
+from dorknet_tpu_torch.optimisers import SGDMomentum  # noqa: E402
 from dorknet_tpu_torch.utils.seeded import seed_serving_weights  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -46,14 +50,70 @@ def test_kernel_matches_plain(cuda, N, H, W, C, stride, dtype):
 
 
 def test_kernel_refuses_grad_and_mixed_devices(cuda):
+    """An input that needs a gradient trains through the forward, dx and dw
+    kernels (one launch each); mixed devices are refused."""
     x = torch.randn(1, 5, 5, 4, device=cuda, requires_grad=True)
-    w = torch.randn(4, 3, 3, device=cuda)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        depthwise3x3(x, w, 1)
+    w = torch.randn(4, 3, 3, device=cuda, requires_grad=True)
+    before = (depthwise3x3.launches, depthwise3x3_dx.launches, depthwise3x3_dw.launches)
+    depthwise3x3(x, w, 1).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (depthwise3x3.launches, depthwise3x3_dx.launches,
+            depthwise3x3_dw.launches) == tuple(n + 1 for n in before)
+    g = 2 * depthwise3x3_plain(x.detach(), w.detach(), 1)
+    for got, want in ((x.grad, depthwise3x3_dx_plain(g, w.detach(), 1, 5, 5)),
+                      (w.grad, depthwise3x3_dw_plain(x.detach(), g, 1))):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max()) + 1e-5
     with torch.inference_mode():
         assert depthwise3x3(x, w, 1).shape == (1, 5, 5, 4)
     with pytest.raises(ValueError, match="x on"):
-        depthwise3x3(x.detach(), w.cpu(), 1)
+        depthwise3x3(x.detach(), w.detach().cpu(), 1)
+
+
+BWD_CASES = [(2, 9, 9, 24, 1), (2, 9, 9, 24, 2), (3, 10, 7, 5, 2), (1, 1, 1, 3, 1),
+             (2, 2, 3, 1, 2), (4, 16, 16, 40, 1), (2, 14, 14, 64, 2), (2, 8, 8, 33, 2)]
+
+
+def _bwd_inputs(device, N, H, W, C, stride, dtype):
+    g_ = torch.Generator(device=device).manual_seed(N * 1000 + H * 10 + C + stride)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    x = torch.randn(N, H, W, C, generator=g_, device=device).to(dtype)
+    g = torch.randn(N, Ho, Wo, C, generator=g_, device=device).to(dtype)
+    w = torch.randn(C, 3, 3, generator=g_, device=device).to(dtype).float()
+    return x, g, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,W,C,stride", BWD_CASES)
+def test_dx_kernel_matches_plain(cuda, N, H, W, C, stride, dtype):
+    """fp32: 1e-5 of max|dx|; bf16 with bf16-exact weights: the products
+    are exact and both sum the taps in the same order, so equal."""
+    _, g, w = _bwd_inputs(cuda, N, H, W, C, stride, dtype)
+    before = depthwise3x3_dx.launches
+    dx = depthwise3x3_dx(g, w, stride, H, W)
+    ref = depthwise3x3_dx_plain(g, w, stride, H, W)
+    torch.cuda.synchronize()
+    assert depthwise3x3_dx.launches == before + 1
+    assert dx.dtype == dtype and dx.shape == (N, H, W, C)
+    tol = 1e-5 * float(ref.float().abs().max()) + 1e-6 if dtype == torch.float32 else 0.0
+    assert float((dx.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,W,C,stride", BWD_CASES)
+def test_dw_kernel_matches_plain_and_repeats(cuda, N, H, W, C, stride, dtype):
+    """Within 2e-5 of sum|x*g| per tap and channel (fp32 sums in another
+    order); two runs bit-equal."""
+    x, g, _ = _bwd_inputs(cuda, N, H, W, C, stride, dtype)
+    before = depthwise3x3_dw.launches
+    dw = depthwise3x3_dw(x, g, stride)
+    dw2 = depthwise3x3_dw(x, g, stride)
+    ref = depthwise3x3_dw_plain(x, g, stride)
+    scale = depthwise3x3_dw_plain(x.float().abs(), g.float().abs(), stride)
+    torch.cuda.synchronize()
+    assert depthwise3x3_dw.launches == before + 2
+    assert dw.dtype == torch.float32 and dw.shape == (C, 3, 3)
+    assert torch.equal(dw, dw2)
+    assert bool(((dw - ref).abs() <= 2e-5 * scale + 1e-6).all())
 
 
 def test_resnet18_on_card_matches_cpu(cuda):
@@ -69,3 +129,38 @@ def test_resnet18_on_card_matches_cpu(cuda):
     _, got = net.forward(X, test_mode=True)
     assert depthwise3x3.launches == before + 16
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-5)
+
+
+def test_trainer_step_on_card_matches_cpu(cuda):
+    """ResNet18 at full width, fresh BN, two Trainer.steps (clip 1.0, EMA
+    0.9) at batch 4 at the flagship's 225 px on the card and on the CPU
+    (fp32, TF32 off): per-step loss within 1e-4 relative, parameters within
+    1e-4 relative / 1e-5 absolute, and every step launched the forward, dx
+    and dw kernels 16 times each. Why this configuration: the fresh weights
+    are 0.01-scale and each BN divides by a small sigma, so the stem's
+    gradients are large; without the clip one step moves those weights by
+    about their own size, and the 1e-3-relative fp32 differences between
+    the devices' cancelling reductions (BN backward, weight gradients) then
+    reach 9e-5 absolute. Below 225 px the last stages' BNs see only a few
+    samples and the second step's loss moves by 1.4e-4 relative."""
+    np.random.seed(0)
+    net_cpu = ResNet18("dogs", num_classes=120)
+    np.random.seed(0)
+    net_gpu = ResNet18("dogs", num_classes=120)
+    args = dict(ema_decay=0.9, clip_norm=1.0)
+    t_cpu = Trainer(net_cpu, SGDMomentum(net_cpu, 0.001, 0.9), device="cpu", **args)
+    t_gpu = Trainer(net_gpu, SGDMomentum(net_gpu, 0.001, 0.9), device=cuda, **args)
+    rng = np.random.RandomState(1)
+    for _ in range(2):
+        X = rng.randn(4, 3, 225, 225).astype(np.float32)
+        y = np.eye(120, dtype=np.float32)[rng.randint(0, 120, 4)]
+        want, _ = t_cpu.step(X, y)
+        counts = (depthwise3x3.launches, depthwise3x3_dx.launches, depthwise3x3_dw.launches)
+        got, _ = t_gpu.step(X, y)
+        torch.cuda.synchronize()
+        assert (depthwise3x3.launches, depthwise3x3_dx.launches,
+                depthwise3x3_dw.launches) == tuple(n + 16 for n in counts)
+        assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))
+    for a, b in zip(net_gpu.parameters(), net_cpu.parameters(), strict=True):
+        np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().numpy(),
+                                   rtol=1e-4, atol=1e-5)

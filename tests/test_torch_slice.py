@@ -180,6 +180,7 @@ def test_port_imports_no_jax():
     """(f) The port imports neither jax nor dorknet_tpu, and h5py only
     inside the checkpoint loader."""
     code = ("import sys, dorknet_tpu_torch.network, dorknet_tpu_torch.models\n"
+            "import dorknet_tpu_torch.network.trainer, dorknet_tpu_torch.optimisers\n"
             "bad = [m for m in ('jax', 'h5py', 'dorknet_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
