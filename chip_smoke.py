@@ -37,7 +37,27 @@ Phases (each checks its results; any failure ends the run non-zero with no
 8. training times: per depthwise shape the dx and dw kernels against their
    plain versions and cuDNN's grouped-conv backward; ``Trainer.step`` at
    batch 64 in fp32 and in bf16 flow; a ``torch.profiler`` breakdown of
-   the fp32 step by kernel class.
+   the fp32 step by kernel class;
+9. augmentation kernel vs plain: ``augment_planes_fused`` against its plain
+   PyTorch version on the card at the flagship's batch (60 precrops of
+   281x281 uint8 -> 225x225) in six configurations (crop random or center,
+   with and without HSV and rotation, crop only, no crop); no pixel more
+   than 1 step off and at most 0.01% off, two runs bit-equal; times of the
+   kernel and the plain version;
+10. the augmented training slice: a synthetic packed directory (2,048
+    images of 281x281, 120 classes) uploaded by ``DeviceResidentDataset``
+    in 64 MB chunks, with the peak device memory held to the dataset plus
+    one chunk; ResNet-18-depsep at full width trained by five
+    ``Trainer.step_augmented_indexed`` steps (the flagship's augmentation,
+    mixup, 120 images a step) and one ``multi_step_augmented_indexed`` of
+    three; every step must launch the augmentation kernel once and the
+    depthwise forward, dx and dw kernels 16 times each, with a finite loss.
+    Then, under one generator seed, ``step_augmented``,
+    ``train_pipeline`` + ``Trainer.step`` and ``step_augmented_indexed``
+    must agree;
+10b. times of the augmented step against ``Trainer.step`` on an
+    already-augmented batch of 120, and a ``torch.profiler`` split of the
+    augmented step.
 
 The line before the last is a JSON object of the kernels of the paths; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -45,9 +65,11 @@ script exits non-zero and prints no result.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -56,9 +78,14 @@ import torch
 import torch.nn.functional as F
 
 from dorknet_tpu_torch import config
+from dorknet_tpu_torch.data_loading import (DeviceResidentDataset, draw_batch_params,
+                                            train_pipeline, write_packed_arrays)
 from dorknet_tpu_torch.layers.base import to_nhwc
 from dorknet_tpu_torch.models import ResNet18
 from dorknet_tpu_torch.network import BatchingServer, InferenceRunner, Trainer
+from dorknet_tpu_torch.ops.cuda.augment import (
+    _geometry, augment_param_table, augment_planes_fused, augment_planes_fused_plain,
+    launch_augment_kernel)
 from dorknet_tpu_torch.ops.cuda.build import load_library
 from dorknet_tpu_torch.ops.cuda.depthwise import (
     depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain, depthwise3x3_dx,
@@ -82,6 +109,27 @@ FLAGSHIP_DW = [
 ]
 ODD_DW = [(9, 24, 1), (9, 24, 2)]
 DW_LAYERS = sum(n for *_, n in FLAGSHIP_DW)  # 16
+
+# the flagship example's on-device augmentation: batch 60 (120 trained
+# images a step with mixup), 225 px cut from a 281 px precrop
+AUG_BATCH = 60
+PRECROP = 281
+AUG_OUT = (225, 225)
+AUG_CFG = dict(hsv_pert_tuples=((0.9, 1.1), (0.5, 2.0), (0.5, 2.0)),
+               rotation_tuple=(-15.0, 15.0), horizontal_flip_prob=0.5, crop_mode="random")
+AUG_CONFIGS = [("all", AUG_CFG), ("center", dict(AUG_CFG, crop_mode="center")),
+               ("no_rotation", dict(AUG_CFG, rotation_tuple=None)),
+               ("no_hsv", dict(AUG_CFG, hsv_pert_tuples=None)),
+               ("crop_only", dict(hsv_pert_tuples=None, rotation_tuple=None,
+                                  horizontal_flip_prob=None, crop_mode="random")),
+               ("no_crop", dict(AUG_CFG, crop_mode=None))]
+MIXUP = (0.0, 0.3)
+AUG_LR = 0.05 * (2 * AUG_BATCH / 200.0)  # the example's rule at 2B trained images
+DATASET_IMAGES = 2048
+CHUNK_BYTES = 64 << 20
+# fp32 operations of the arithmetic in csrc/augment_planes.cu: a pixel's HSV
+# round trip, one lerp of a shear, and one line's shift
+AUG_HSV_OPS, AUG_LERP_OPS, AUG_SHIFT_OPS = 39, 7, 6
 
 
 def log(*args):
@@ -501,6 +549,10 @@ def phase_bwd_times():
 
 def kernel_class(name):
     n = name.lower()
+    if "augment_rotate" in n or "augment_pointwise" in n:
+        return "augmentation kernel"
+    if "gather" in n or "indexselect" in n:
+        return "gathers (dataset rows, mixup partners)"
     if "depthwise3x3_dx" in n:
         return "depthwise dx"
     if "depthwise3x3_dw" in n:
@@ -571,6 +623,299 @@ def phase_train_times(trainer):
     return ms32
 
 
+def precrop_batch(B, H, W, seed):
+    """uint8 (B,H,W,3) BGR on the card: a smooth pattern per channel plus
+    noise, so the HSV sectors and the shear lerps all matter."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    yy = torch.arange(H, device=DEVICE).view(1, H, 1, 1).float()
+    xx = torch.arange(W, device=DEVICE).view(1, 1, W, 1).float()
+    base = 127 + 60 * torch.sin(yy / 9.0 + torch.arange(3, device=DEVICE)) + \
+        50 * torch.cos(xx / 13.0)
+    noise = torch.randint(-40, 41, (B, H, W, 3), generator=g, device=DEVICE)
+    return torch.clamp(base + noise, 0, 255).to(torch.uint8)
+
+
+def augment_bound_ms(B, H, W, oh, ow, P, cropped):
+    """(ms, what bounds it, bytes) of the function one augmentation call
+    computes. Bytes: each pixel it reads once (only the oh x ow window when
+    it crops, the whole H x W input without a crop) and each output pixel
+    written once, over the memory rate. Operations: the function's fp32
+    arithmetic over the fp32 rate, HSV once a pixel (the kernel recomputes
+    it in each channel's block, the function needs it once), the shear lerps
+    of every channel, and the line shifts once an image (shared by its
+    channels)."""
+    n_bytes = B * 3 * ((oh * ow if cropped else H * W) + oh * ow)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    ops = AUG_HSV_OPS * B * oh * ow
+    if P:
+        Wp = ow + 2 * P
+        ops += AUG_LERP_OPS * B * 3 * (2 * oh * Wp + oh * ow) + AUG_SHIFT_OPS * B * (oh + Wp)
+    t_ops = ops / FP32_FLOPS_PER_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, n_bytes
+
+
+def phase_augment_vs_plain():
+    """Returns the flagship configuration's numbers: max |err| in uint8
+    steps, pixels off, kernel ms, plain ms, bound ms, what bounds it."""
+    log("== phase 9: augment_planes_fused kernel vs plain on the card")
+    log("  batch {} of {}x{} uint8 -> {}; limits: no pixel more than 1 step off, at most "
+        "0.01% off; two runs bit-equal".format(AUG_BATCH, PRECROP, PRECROP, AUG_OUT))
+    x = precrop_batch(AUG_BATCH, PRECROP, PRECROP, seed=9)
+    result = None
+    for i, (name, cfg) in enumerate(AUG_CONFIGS):
+        params = draw_batch_params(torch.Generator(device=DEVICE).manual_seed(90 + i),
+                                   AUG_BATCH, (PRECROP, PRECROP), AUG_OUT, **cfg)
+        oh, ow, P = _geometry(x, AUG_OUT, cfg["rotation_tuple"], cfg["crop_mode"])
+        table = augment_param_table(params, AUG_BATCH, (PRECROP, PRECROP), (oh, ow),
+                                    device=DEVICE, **cfg)
+        hsv_on = cfg["hsv_pert_tuples"] is not None
+        flip_on = cfg["horizontal_flip_prob"] is not None
+        got = augment_planes_fused(x, params, AUG_OUT, **cfg)
+        again = launch_augment_kernel(x, table, (oh, ow), hsv_on, P)
+        want = augment_planes_fused_plain(x, table, (oh, ow), hsv_on, P, flip_on)
+        torch.cuda.synchronize()
+        require(got.dtype == torch.uint8 and got.shape == want.shape,
+                "output {} {}".format(got.dtype, tuple(got.shape)))
+        diff = (got.int() - want.int()).abs()
+        err, off = diff.max().item(), int((diff > 0).sum().item())
+        same = bool(torch.equal(got, again))
+        log("  {:<12} -> {}x{}: max|err| {} steps, {} of {} pixels off ({:.5%}), repeat "
+            "bit-equal {}".format(name, oh, ow, err, off, diff.numel(), off / diff.numel(),
+                                  same))
+        require(err <= 1 and off <= 1e-4 * diff.numel(),
+                "augment_planes_fused disagrees with its plain version")
+        require(same, "two augment_planes_fused runs differ")
+        if name == "all":
+            ms = cuda_ms(lambda: launch_augment_kernel(x, table, (oh, ow), hsv_on, P))
+            plain_ms = cuda_ms(lambda: augment_planes_fused_plain(x, table, (oh, ow), hsv_on,
+                                                                  P, flip_on))
+            bound, by, n_bytes = augment_bound_ms(AUG_BATCH, PRECROP, PRECROP, oh, ow, P,
+                                                  cfg["crop_mode"] is not None)
+            result = dict(max_abs_err=err, pixels_off=off, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by)
+            log("  times (CUDA events, median of 50 after 10 warm-ups), card: {}".format(
+                card_line()))
+            log("  flagship configuration: kernel {:.4f} ms, plain {:.4f} ms; bound {:.4f} ms "
+                "({}; {:.1f} MB at 3.35 TB/s), the kernel reaches {:.1%} of it".format(
+                    ms, plain_ms, bound, by, n_bytes / 1e6, bound / ms))
+    return result
+
+
+def dataset_rows(labels):
+    """Rows start:stop of the synthetic dataset: a smooth pattern shifted
+    per image, brightened in channel (label mod 3), plus noise."""
+    yy, xx = np.mgrid[0:PRECROP, 0:PRECROP]
+    base = np.stack([127 + 60 * np.sin(yy / 9.0 + c) + 50 * np.cos(xx / 13.0)
+                     for c in range(3)], axis=-1).astype(np.float32)
+
+    def rows(start, stop):
+        rng = np.random.default_rng(start)
+        out = np.empty((stop - start, PRECROP, PRECROP, 3), np.uint8)
+        for i in range(start, stop):
+            im = np.roll(base, (i * 7) % PRECROP, axis=1)
+            im[..., labels[i] % 3] += 40
+            im += rng.integers(-30, 31, im.shape, dtype=np.int16)
+            out[i - start] = np.clip(im, 0, 255)
+        return out
+
+    return rows
+
+
+def write_dataset(path):
+    labels = np.arange(DATASET_IMAGES) * NUM_CLASSES // DATASET_IMAGES
+    t0 = time.perf_counter()
+    write_packed_arrays(path, dataset_rows(labels), labels,
+                        ["class{:03d}".format(c) for c in range(NUM_CLASSES)])
+    log("  wrote {} images of {}x{}x3 ({:.1f} MB) in {:.2f} s".format(
+        DATASET_IMAGES, PRECROP, PRECROP, DATASET_IMAGES * PRECROP * PRECROP * 3 / 1e6,
+        time.perf_counter() - t0))
+
+
+def upload_dataset(path):
+    """DeviceResidentDataset with its peak device memory checked."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dd = DeviceResidentDataset(path, AUG_BATCH, class_balance=False,
+                               expect_precrop=(PRECROP, PRECROP), chunk_bytes=CHUNK_BYTES,
+                               device=DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    nbytes = dd.images.numel()
+    limit = nbytes + CHUNK_BYTES + (8 << 20)
+    log("  upload: {:.2f} s; device memory peak {:.1f} MB over the dataset's {:.1f} MB "
+        "(limit: dataset + one {} MB chunk + 8 MB = {:.1f} MB)".format(
+            seconds, peak / 1e6, nbytes / 1e6, CHUNK_BYTES >> 20, limit / 1e6))
+    require(peak <= limit, "the upload held more than the dataset and one chunk")
+    probe = np.array([0, DATASET_IMAGES // 2, DATASET_IMAGES - 1])
+    require(np.array_equal(dd.images[torch.from_numpy(probe).to(DEVICE)].cpu().numpy(),
+                           dd.packed.gather(probe)), "uploaded rows differ from the pack")
+    return dd
+
+
+def fresh_aug_trainer(**kwargs):
+    net = fresh_resnet18()
+    return Trainer(net, SGDMomentum(net, AUG_LR, 0.9), ema_decay=0.999, device=DEVICE,
+                   **kwargs)
+
+
+AUG_KERNELS = (augment_planes_fused,) + KERNELS
+
+
+def phase_aug_train(dd):
+    """Returns the trainer, the launches of the four kernels over its eight
+    steps, and the rows of its last step."""
+    log("== phase 10: ResNet18 trained by Trainer.step_augmented_indexed on the card")
+    trainer = fresh_aug_trainer()
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    aug = dict(AUG_CFG, mixup=MIXUP)
+    want = [1, DW_LAYERS, DW_LAYERS, DW_LAYERS]
+    for k in AUG_KERNELS:
+        k.launches = 0
+    for step in range(5):
+        before = [k.launches for k in AUG_KERNELS]
+        rows = dd.next_indices()
+        loss, preds = trainer.step_augmented_indexed(gen, dd.images, dd.labels, rows, AUG_OUT,
+                                                     dd.num_classes, **aug)
+        torch.cuda.synchronize()
+        per_step = [k.launches - b for k, b in zip(AUG_KERNELS, before)]
+        log("  step {}: loss {:.6f}, launches augment/forward/dx/dw {}".format(
+            step, float(loss), per_step))
+        require(per_step == want, "a step missed a kernel")
+        require(np.isfinite(float(loss)), "non-finite loss")
+        require(tuple(preds.shape) == (2 * AUG_BATCH,), "preds {}".format(tuple(preds.shape)))
+    before = [k.launches for k in AUG_KERNELS]
+    rows_stack = np.stack([dd.next_indices() for _ in range(3)])
+    losses, preds = trainer.multi_step_augmented_indexed(
+        gen, dd.images, dd.labels, rows_stack, AUG_OUT, dd.num_classes, **aug)
+    torch.cuda.synchronize()
+    per_call = [k.launches - b for k, b in zip(AUG_KERNELS, before)]
+    log("  multi_step_augmented_indexed K=3: losses {}, launches augment/forward/dx/dw {}"
+        .format([round(float(v), 6) for v in losses], per_call))
+    require(per_call == [3 * n for n in want], "a step of the K=3 call missed a kernel")
+    require(bool(torch.isfinite(losses).all()) and tuple(preds.shape) == (3, 2 * AUG_BATCH),
+            "multi-step losses or preds")
+    launches = [k.launches for k in AUG_KERNELS]
+    require(all(bool(torch.isfinite(p).all()) for p in trainer.network.parameters()),
+            "non-finite parameters")
+    log("  8 steps of {} trained images: launches augment/forward/dx/dw {}".format(
+        2 * AUG_BATCH, launches))
+    return trainer, launches, rows_stack[-1]
+
+
+def phase_aug_equal(dd, rows):
+    """step_augmented, train_pipeline + Trainer.step and
+    step_augmented_indexed from one generator seed and fresh weights."""
+    log("== phase 10 (cont.): one seed, three entry points")
+    aug = dict(AUG_CFG, mixup=MIXUP)
+    X = dd.images.index_select(0, torch.from_numpy(rows).long().to(DEVICE))
+    y = F.one_hot(dd.labels[torch.from_numpy(rows).long().to(DEVICE)].long(),
+                  dd.num_classes).float()
+    results = []
+    for how in ("step_augmented", "train_pipeline + step", "step_augmented_indexed"):
+        trainer = fresh_aug_trainer(input_layout="NHWC" if how == "train_pipeline + step"
+                                    else "NCHW")
+        gen = torch.Generator(device=DEVICE).manual_seed(77)
+        if how == "step_augmented":
+            loss, _ = trainer.step_augmented(gen, X, y, AUG_OUT, **aug)
+        elif how == "step_augmented_indexed":
+            loss, _ = trainer.step_augmented_indexed(gen, dd.images, dd.labels, rows, AUG_OUT,
+                                                     dd.num_classes, **aug)
+        else:
+            x, yy = train_pipeline(gen, X, y, AUG_OUT, output_layout="NHWC", **aug)
+            loss, _ = trainer.step(x, yy)
+        results.append((how, float(loss), [p.detach().clone() for p in
+                                           trainer.network.parameters()]))
+    _, loss0, params0 = results[0]
+    for how, loss, params in results[1:]:
+        worst = max((a - b).abs().max().item() for a, b in zip(params, params0, strict=True))
+        rel = abs(loss - loss0) / abs(loss0)
+        log("  {} vs step_augmented: loss {:.7f} vs {:.7f} (relative {:.2e}), parameters "
+            "max|diff| {:.3e}".format(how, loss, loss0, rel, worst))
+        require(rel <= 1e-6 and worst <= 1e-6, "{} disagrees with step_augmented".format(how))
+
+
+def phase_aug_times(trainer, dd, rows):
+    """Returns the augmented step's ms."""
+    log("== phase 10b: augmented step times (CUDA events around the step; the mean of two "
+        "turns, each the median of 10 after 3 warm-ups)")
+    log("card:", card_line())
+    aug = dict(AUG_CFG, mixup=MIXUP)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+
+    def aug_step():
+        return trainer.step_augmented_indexed(gen, dd.images, dd.labels, rows, AUG_OUT,
+                                              dd.num_classes, **aug)
+
+    X = dd.images.index_select(0, torch.from_numpy(rows).long().to(DEVICE))
+    y = F.one_hot(dd.labels[torch.from_numpy(rows).long().to(DEVICE)].long(),
+                  dd.num_classes).float()
+    x, yy = train_pipeline(gen, X, y, AUG_OUT, output_layout="NHWC", **aug)
+    nhwc = Trainer(trainer.network, SGDMomentum(trainer.network, AUG_LR, 0.9),
+                   input_layout="NHWC", device=DEVICE)
+    # in turns (augmented, plain, plain, augmented): the host's pace drifts
+    times = {"aug": [], "plain": []}
+    for which in ("aug", "plain", "plain", "aug"):
+        fn = aug_step if which == "aug" else (lambda: nhwc.step(x, yy))
+        times[which].append(cuda_ms(fn, warmup=3, iters=10))
+    ms_aug, ms_plain = (statistics.mean(times[k]) for k in ("aug", "plain"))
+    n = 2 * AUG_BATCH
+    log("  step_augmented_indexed, {} trained images: {:.3f} ms = {:.0f} img/s (turns {}); "
+        "Trainer.step on the augmented batch: {:.3f} ms = {:.0f} img/s (turns {}); the input "
+        "path adds {:.3f} ms".format(
+            n, ms_aug, n / ms_aug * 1e3, [round(t, 3) for t in times["aug"]], ms_plain,
+            n / ms_plain * 1e3, [round(t, 3) for t in times["plain"]], ms_aug - ms_plain))
+
+    steps = 3
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            aug_step()
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t0) * 1e3
+    by_class, by_name, n_kernels = {}, {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n_kernels += evt.count
+        cls = kernel_class(evt.key)
+        by_class[cls] = by_class.get(cls, 0.0) + evt.device_time_total / 1e3 / steps
+        by_name[evt.key] = by_name.get(evt.key, 0.0) + evt.device_time_total / 1e3 / steps
+    busy = sum(by_class.values())
+    per_step = span_ms / steps
+    if busy == 0.0:
+        log("  profiler: no device time recorded")
+        return ms_aug
+    log("  profiler, augmented step (host clock with the profiler on: {:.3f} ms a step): {} "
+        "kernels a step, busy {:.3f} ms, idle share {:.1%}".format(
+            per_step, n_kernels // steps, busy, max(0.0, 1.0 - busy / per_step)))
+    for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        log("    {:<38} {:8.3f} ms  {:5.1%}".format(cls, ms, ms / busy))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        if kernel_class(name) in ("augmentation kernel", "gathers (dataset rows, mixup partners)"):
+            log("    input path: {:8.3f} ms  {}".format(ms, name[:100]))
+    return ms_aug
+
+
+def phase_aug_slice():
+    """Phases 10 and 10b; returns the augmentation kernel's launches over
+    the eight steps of phase 10."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "packed")
+        log("== phase 10: the device-resident dataset")
+        write_dataset(path)
+        dd = upload_dataset(path)
+        trainer, launches, rows = phase_aug_train(dd)
+        phase_aug_equal(dd, rows)
+        phase_aug_times(trainer, dd, rows)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a "
@@ -594,12 +939,15 @@ def main():
     phase_train_twin()
     bwd = phase_bwd_times()
     phase_train_times(trainer)
+    del trainer
+    aug = phase_augment_vs_plain()
+    aug_launches = phase_aug_slice()
 
     bound_ms, bound_by = flagship_bound_ms()
     dw_bound, dw_by = flagship_bound_ms(lambda C: 9 * C * 4)
     entry = dict(route="cuda", replaces="dorknet_tpu/ops/pallas/depthwise.py:205")
-    log("  launches: serving run forward {}; training run forward/dx/dw {}".format(
-        serve_launches, launches))
+    log("  launches: serving run forward {}; training run forward/dx/dw {}; augmented "
+        "training run augment/forward/dx/dw {}".format(serve_launches, launches, aug_launches))
     log(json.dumps({"kernels": [
         dict(name="depthwise3x3", route="cuda",
              source="dorknet_tpu_torch/csrc/depthwise3x3.cu",
@@ -615,6 +963,10 @@ def main():
              launches=launches[2], max_abs_err=bwd_err["dw"], ms=bwd["dw"],
              plain_ms=bwd["dw_plain"], bound_ms=dw_bound, bound_by=dw_by,
              library_ms=bwd["dw_cudnn"], **entry),
+        dict(name="augment_planes_fused", route="cuda",
+             source="dorknet_tpu_torch/csrc/augment_planes.cu",
+             replaces="dorknet_tpu/ops/pallas/augment.py:205", launches=aug_launches[0],
+             library_ms=None, **aug),
     ]}))
     log("card:", card_line())
     log(json.dumps({"ok": True, "device": {

@@ -68,6 +68,11 @@ def _bind(lib):
     lib.dorknet_depthwise3x3_dw.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                             ci, ci, ci, vp, ci]
     lib.dorknet_depthwise3x3_dw.restype = ci
+    lib.dorknet_augment_planes.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                           ctypes.c_float, ci, vp, ci]
+    lib.dorknet_augment_planes.restype = ci
+    lib.dorknet_max_block_smem.argtypes = [ci]
+    lib.dorknet_max_block_smem.restype = ci
     lib.dorknet_cuda_error_string.argtypes = [ci]
     lib.dorknet_cuda_error_string.restype = ctypes.c_char_p
     return lib

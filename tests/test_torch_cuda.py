@@ -10,8 +10,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from dorknet_tpu_torch.data_loading.device_augment import (  # noqa: E402
+    draw_batch_params, train_pipeline)
 from dorknet_tpu_torch.models import ResNet18  # noqa: E402
 from dorknet_tpu_torch.network import Trainer  # noqa: E402
+from dorknet_tpu_torch.ops.cuda.augment import augment_planes_fused  # noqa: E402
 from dorknet_tpu_torch.ops.cuda.depthwise import (  # noqa: E402
     depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain, depthwise3x3_dx,
     depthwise3x3_dx_plain, depthwise3x3_plain)
@@ -164,3 +167,59 @@ def test_trainer_step_on_card_matches_cpu(cuda):
     for a, b in zip(net_gpu.parameters(), net_cpu.parameters(), strict=True):
         np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().numpy(),
                                    rtol=1e-4, atol=1e-5)
+
+
+AUG_CFG = dict(hsv_pert_tuples=((0.9, 1.1), (0.5, 2.0), (0.5, 2.0)),
+               rotation_tuple=(-15.0, 15.0), horizontal_flip_prob=0.5, crop_mode="random")
+AUG_CONFIGS = [AUG_CFG, dict(AUG_CFG, crop_mode="center"), dict(AUG_CFG, rotation_tuple=None),
+               dict(AUG_CFG, hsv_pert_tuples=None),
+               dict(hsv_pert_tuples=None, rotation_tuple=None, horizontal_flip_prob=None,
+                    crop_mode="random"),
+               dict(AUG_CFG, crop_mode=None)]
+
+
+def _precrop_batch(device, B, H, W, seed):
+    """uint8 (B,H,W,3): a smooth pattern per channel plus noise."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    yy = torch.arange(H, device=device).view(1, H, 1, 1).float()
+    xx = torch.arange(W, device=device).view(1, 1, W, 1).float()
+    base = 127 + 60 * torch.sin(yy / 9.0 + torch.arange(3, device=device)) + 50 * torch.cos(xx / 13.0)
+    noise = torch.randint(-40, 41, (B, H, W, 3), generator=g, device=device)
+    return torch.clamp(base + noise, 0, 255).to(torch.uint8)
+
+
+@pytest.mark.parametrize("cfg", AUG_CONFIGS, ids=["all", "center", "no_rotation", "no_hsv",
+                                                  "crop_only", "no_crop"])
+@pytest.mark.parametrize("B,H,W,out", [(4, 40, 40, (32, 32)), (3, 37, 45, (29, 33)),
+                                       (2, 281, 281, (225, 225))])
+def test_augment_kernel_matches_plain(cuda, B, H, W, out, cfg):
+    """The kernel and its plain version on the card, from the same draws:
+    bit-equal (both round every operation the same way), one launch."""
+    x = _precrop_batch(cuda, B, H, W, seed=B * H + W)
+    p = draw_batch_params(torch.Generator(device=cuda).manual_seed(3), B, (H, W), out, **cfg)
+    before = augment_planes_fused.launches
+    got = augment_planes_fused(x, p, out, **cfg)
+    want = augment_planes_fused(x.cpu(), {k: v.cpu() for k, v in p.items()}, out, **cfg)
+    torch.cuda.synchronize()
+    assert augment_planes_fused.launches == before + 1
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+def test_augment_kernel_refuses_float_and_large_rotations(cuda):
+    """A float precrop batch on the card raises (the kernel is uint8-only),
+    in the wrapper and through train_pipeline; a rotation whose two stage
+    buffers exceed a block's shared memory raises with the size."""
+    p = draw_batch_params(torch.Generator(device=cuda), 2, (30, 30), (24, 24), **AUG_CFG)
+    xf = torch.zeros((2, 30, 30, 3), device=cuda)
+    with pytest.raises(TypeError, match="uint8"):
+        augment_planes_fused(xf, p, (24, 24), **AUG_CFG)
+    with pytest.raises(TypeError, match="uint8"):
+        train_pipeline(torch.Generator(device=cuda), xf, torch.zeros((2, 3), device=cuda),
+                       (24, 24), **AUG_CFG)
+    big = torch.zeros((1, 330, 330, 3), dtype=torch.uint8, device=cuda)
+    pb = draw_batch_params(torch.Generator(device=cuda), 1, (330, 330), (320, 320), **AUG_CFG)
+    before = augment_planes_fused.launches
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        augment_planes_fused(big, pb, (320, 320), **AUG_CFG)
+    assert augment_planes_fused.launches == before

@@ -177,11 +177,15 @@ def test_unset_batch_norm_refuses_to_run():
 
 
 def test_port_imports_no_jax():
-    """(f) The port imports neither jax nor dorknet_tpu, and h5py only
+    """(f) The port imports neither jax, cv2 nor dorknet_tpu, and h5py only
     inside the checkpoint loader."""
     code = ("import sys, dorknet_tpu_torch.network, dorknet_tpu_torch.models\n"
             "import dorknet_tpu_torch.network.trainer, dorknet_tpu_torch.optimisers\n"
-            "bad = [m for m in ('jax', 'h5py', 'dorknet_tpu') if m in sys.modules]\n"
+            "import dorknet_tpu_torch.data_loading, dorknet_tpu_torch.ops.cuda.augment\n"
+            "import dorknet_tpu_torch.ops.augment\n"
+            "import dorknet_tpu_torch.data_loading.device_dataset\n"
+            "import dorknet_tpu_torch.data_loading.prefetch\n"
+            "bad = [m for m in ('jax', 'h5py', 'cv2', 'dorknet_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True,
