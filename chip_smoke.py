@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA
-GPU and check them.
+"""Drive the PyTorch port's serving and training paths and its kernels' A/B
+once on one NVIDIA GPU and check them.
 
 Usage, from the root of a checkout, on a machine with a CUDA card, nvcc and
 nvidia-smi:
@@ -29,11 +29,19 @@ Phases (each checks its results; any failure ends the run non-zero with no
 6. backward kernels vs plain: ``depthwise3x3_dx`` and ``depthwise3x3_dw``
    against their plain PyTorch versions at the same shapes, in fp32 and
    bf16; two dw runs must be bit-equal;
+6b. ``batch_norm_stats`` against its plain PyTorch version and an fp64
+   reference at the inputs of the flagship's 34 train-mode batch norms at
+   batch 64 (8 distinct shapes), in fp32 and bf16, an odd 4x5x5x24, and the
+   stem's 64x112x112x64 shifted by +7 (the one-pass variance's
+   cancellation); two runs must be bit-equal;
+6c. its times at those shapes against the plain version and
+   ``torch.var_mean``;
 7. the training slice: ResNet-18-depsep at full width, fresh batch norms,
    three ``Trainer.step``s (SGDMomentum, EMA) at batch 64 on seeded data;
    every step must launch the forward, dx and dw kernels 16 times each and
-   give a finite loss. Then a CPU twin: two steps at batch 4 (with clip and
-   EMA) on the card and on the CPU must agree;
+   ``batch_norm_stats`` 34 times, and give a finite loss. Then a CPU twin:
+   two steps at batch 4 (with clip and EMA) on the card and on the CPU must
+   agree;
 8. training times: per depthwise shape the dx and dw kernels against their
    plain versions and cuDNN's grouped-conv backward; ``Trainer.step`` at
    batch 64 in fp32 and in bf16 flow; a ``torch.profiler`` breakdown of
@@ -50,14 +58,28 @@ Phases (each checks its results; any failure ends the run non-zero with no
     one chunk; ResNet-18-depsep at full width trained by five
     ``Trainer.step_augmented_indexed`` steps (the flagship's augmentation,
     mixup, 120 images a step) and one ``multi_step_augmented_indexed`` of
-    three; every step must launch the augmentation kernel once and the
-    depthwise forward, dx and dw kernels 16 times each, with a finite loss.
+    three; every step must launch the augmentation kernel once, the
+    depthwise forward, dx and dw kernels 16 times each and
+    ``batch_norm_stats`` 34 times, with a finite loss.
     Then, under one generator seed, ``step_augmented``,
     ``train_pipeline`` + ``Trainer.step`` and ``step_augmented_indexed``
     must agree;
 10b. times of the augmented step against ``Trainer.step`` on an
     already-augmented batch of 120, and a ``torch.profiler`` split of the
-    augmented step.
+    augmented step;
+11. GEMM: ``matmul`` and ``matmul_bn_stats`` against their plain versions
+    at the flagship's 20 pointwise GEMMs and its dense head at batch 64 in
+    fp32, the BN-fusion A/B's two shapes in bf16 (y in bf16 and in fp32) and
+    the JAX package's test shapes; two ``matmul_bn_stats`` runs bit-equal;
+    each timed against its plain version and cuBLAS (``torch.matmul``);
+12. the BN-fusion A/B (``dorknet_tpu_torch.utils.bn_fuse_ab.run``): the
+    torch, fused and split variants' device ms per shape, and its 2e-2
+    statistics gate;
+13. ``Trainer.accumulate_step`` on a fresh flagship, K = 2 micro-batches of
+    64: the BN pre-pass and the two micro-batches launch
+    ``batch_norm_stats`` 34 x 3 times, the depthwise forward 48 and dx and
+    dw 32 each, with a finite loss; a second call without the pre-pass, and
+    its time.
 
 The line before the last is a JSON object of the kernels of the paths; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -86,11 +108,16 @@ from dorknet_tpu_torch.network import BatchingServer, InferenceRunner, Trainer
 from dorknet_tpu_torch.ops.cuda.augment import (
     _geometry, augment_param_table, augment_planes_fused, augment_planes_fused_plain,
     launch_augment_kernel)
+from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats, batch_norm_stats_plain
 from dorknet_tpu_torch.ops.cuda.build import load_library
 from dorknet_tpu_torch.ops.cuda.depthwise import (
     depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain, depthwise3x3_dx,
     depthwise3x3_dx_plain, depthwise3x3_plain)
+from dorknet_tpu_torch.ops.cuda.matmul import (matmul, matmul_bn_stats, matmul_bn_stats_plain,
+                                               matmul_plain)
 from dorknet_tpu_torch.optimisers import SGDMomentum
+from dorknet_tpu_torch.utils import bn_fuse_ab
+from dorknet_tpu_torch.utils.autotune import measure_device_ms
 from dorknet_tpu_torch.utils.seeded import seed_serving_weights
 
 DEVICE = "cuda"
@@ -99,8 +126,11 @@ IMAGE = (3, 225, 225)
 NUM_CLASSES = 120
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published device-memory bandwidth
 FP32_FLOPS_PER_S = 67e12   # H100 SXM published fp32 rate outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core rate
 TRAIN_LR = 0.05 * (BATCH / 200.0)  # the flagship example's rule
 KERNELS = (depthwise3x3, depthwise3x3_dx, depthwise3x3_dw)
+# every training step: the three depthwise kernels and the batch-norm statistics
+TRAIN_KERNELS = KERNELS + (batch_norm_stats,)
 
 # the flagship's depthwise layers: (H = W, C, stride, how many layers)
 FLAGSHIP_DW = [
@@ -109,6 +139,32 @@ FLAGSHIP_DW = [
 ]
 ODD_DW = [(9, 24, 1), (9, 24, 2)]
 DW_LAYERS = sum(n for *_, n in FLAGSHIP_DW)  # 16
+
+# the flagship's train-mode batch norms: (H = W, C, how many) of their inputs
+FLAGSHIP_BN = [
+    (112, 64, 1), (56, 64, 9), (28, 64, 1), (28, 128, 7), (14, 128, 1), (14, 256, 7),
+    (7, 256, 1), (7, 512, 7),
+]
+BN_LAYERS = sum(n for *_, n in FLAGSHIP_BN)  # 34
+ODD_BN = (4, 5, 5, 24)
+SHIFTED_BN = ((BATCH, 112, 112, 64), 7.0)  # the stem's input size, shifted by +7
+TRAIN_WANT = [DW_LAYERS] * 3 + [BN_LAYERS]  # launches a training step makes
+
+# the flagship's pointwise GEMMs: (H*W rows per image, K, N, how many): pw0,
+# the 16 in the blocks and the 3 skip projections; the dense head (M, K, N)
+FLAGSHIP_PW = [
+    (3136, 64, 64, 5), (784, 64, 128, 2), (784, 128, 128, 3), (196, 128, 256, 2),
+    (196, 256, 256, 3), (49, 256, 512, 2), (49, 512, 512, 3),
+]
+FLAGSHIP_DENSE = (BATCH, 512, NUM_CLASSES)
+# the JAX package's GEMM test shapes (tests/test_pallas_kernels.py), (M, K, N)
+JAX_TEST_GEMMS = [(64, 32, 48), (300, 512, 120), (8, 16, 128)]
+# tolerances of a kernel against its plain version on the card, as multiples
+# of the function's own scale: fp32 sums over up to 802,816 terms in another
+# order (a few ulps each of K and M partial sums), far below any indexing fault
+GEMM_RTOL = 2e-5  # of (|a| @ |b|) per element of y
+STATS_RTOL = 2e-5  # of sqrt(E[x^2]) for a mean, of E[x^2] for a variance
+ACC_K = 2  # micro-batches of the accumulate step
 
 # the flagship example's on-device augmentation: batch 60 (120 trained
 # images a step with mixup), 225 px cut from a 281 px precrop
@@ -154,19 +210,26 @@ def card_line():
 
 def cuda_ms(fn, warmup=10, iters=50):
     """Median device time of one call of fn, from CUDA events."""
-    for _ in range(warmup):
+    return measure_device_ms(fn, runs=iters, warmup=warmup)
+
+
+def profiled_ms(calls, repeats=5):
+    """Device ms of one pass over ``calls`` (thunks): the time of every
+    kernel they launch, from torch.profiler, summed, with the host's gaps
+    between launches left out; the mean of ``repeats`` passes after one
+    warm-up pass."""
+    for fn in calls:
         fn()
     torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / repeats
 
 
 def dw_inputs(N, H, C, dtype, seed):
@@ -232,14 +295,17 @@ def build_nets():
 def phase_slice(net_cpu, runner, X):
     """Returns the depthwise launches of the served run."""
     log("== phase 3: ResNet18 served by InferenceRunner on the card")
-    depthwise3x3.launches = 0
+    depthwise3x3.launches = batch_norm_stats.launches = 0
     probs = runner.predict_probs(X)
     torch.cuda.synchronize()
     launches = depthwise3x3.launches
     dispatches = -(-X.shape[0] // runner.batch_size)
-    log("  {} images, {} dispatches, depthwise3x3 launches {} (want {})".format(
-        X.shape[0], dispatches, launches, DW_LAYERS * dispatches))
+    log("  {} images, {} dispatches, depthwise3x3 launches {} (want {}), batch_norm_stats "
+        "launches {} (want 0: test mode)".format(X.shape[0], dispatches, launches,
+                                                 DW_LAYERS * dispatches,
+                                                 batch_norm_stats.launches))
     require(launches == DW_LAYERS * dispatches, "a depthwise layer missed the kernel")
+    require(batch_norm_stats.launches == 0, "a test-mode batch norm took batch statistics")
     require(probs.shape == (X.shape[0], NUM_CLASSES), "probs shape {}".format(probs.shape))
     require(np.isfinite(probs).all(), "non-finite probs")
     row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
@@ -429,6 +495,110 @@ def phase_bwd_vs_plain():
     return worst
 
 
+def bn_input(shape, dtype, seed, shift=0.0):
+    """A seeded activation-like input: 1.5 * normal + 0.25 + shift."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return (torch.randn(*shape, generator=g, device=DEVICE) * 1.5 + (0.25 + shift)).to(dtype)
+
+
+def stats_errors(mean, var, ref_mean, ref_var, second_moment):
+    """(max |dmean|, max |dvar|, the worst share of the limit) of batch-norm
+    statistics against a reference. The limits, per channel: STATS_RTOL of
+    sqrt(E[x^2]) for the mean and of E[x^2] for the variance, the scales of
+    the fp32 sums' rounding (the one-pass variance inherits that of E[x^2])."""
+    dm = (mean.double() - ref_mean.double()).abs()
+    dv = (var.double() - ref_var.double()).abs()
+    e2 = second_moment.double()
+    ratio = torch.maximum(dm / (STATS_RTOL * e2.sqrt() + 1e-12),
+                          dv / (STATS_RTOL * e2 + 1e-12)).max().item()
+    return dm.max().item(), dv.max().item(), ratio
+
+
+def phase_bn_stats_vs_plain():
+    """Returns the largest fp32 max-abs error of the mean and variance at
+    the flagship's shapes."""
+    log("== phase 6b: batch_norm_stats kernel vs plain on the card")
+    log("  limits per channel: mean within {0:g} x sqrt(E[x^2]), var within {0:g} x E[x^2], "
+        "against the plain version and an fp64 reference; two runs bit-equal".format(
+            STATS_RTOL))
+    worst = 0.0
+    cases = [((BATCH, H, H, C), 0.0) for H, C, _ in FLAGSHIP_BN] + [(ODD_BN, 0.0), SHIFTED_BN]
+    for i, (shape, shift) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16) if not shift else (torch.float32,):
+            x = bn_input(shape, dtype, seed=600 + i, shift=shift)
+            mean, var = batch_norm_stats(x)
+            mean2, var2 = batch_norm_stats(x)
+            plain_mean, plain_var = batch_norm_stats_plain(x)
+            dims = tuple(range(x.dim() - 1))
+            x64 = x.double()
+            mean64 = x64.mean(dim=dims)
+            var64 = ((x64 - mean64) ** 2).mean(dim=dims)
+            del x64
+            e2 = var64 + mean64 * mean64
+            torch.cuda.synchronize()
+            same = torch.equal(mean, mean2) and torch.equal(var, var2)
+            dm, dv, ratio = stats_errors(mean, var, plain_mean, plain_var, e2)
+            dm64, dv64, ratio64 = stats_errors(mean, var, mean64, var64, e2)
+            _, _, plain_ratio64 = stats_errors(plain_mean, plain_var, mean64, var64, e2)
+            if dtype == torch.float32 and shape[0] == BATCH and not shift:
+                worst = max(worst, dm, dv)
+            log("  {}{} {}: vs plain max|dmean| {:.3e} max|dvar| {:.3e} ({:.3f} of the limit); "
+                "vs fp64 {:.3e} {:.3e} ({:.3f}; plain {:.3f}); repeat bit-equal {}".format(
+                    shape, " +{:g}".format(shift) if shift else "", str(dtype).split(".")[1],
+                    dm, dv, ratio, dm64, dv64, ratio64, plain_ratio64, same))
+            require(ratio <= 1.0 and ratio64 <= 1.0,
+                    "batch_norm_stats disagrees with its plain version or the fp64 reference")
+            require(same, "two batch_norm_stats runs differ")
+    return worst
+
+
+def phase_bn_stats_times():
+    """Returns the kernel's, the plain version's and torch.var_mean's ms
+    summed over the flagship's 34 batch norms at batch 64 in fp32, with the
+    bound of that work and what sets it."""
+    log("== phase 6c: batch_norm_stats times (CUDA events, median of 50 after 10 warm-ups)")
+    log("card:", card_line())
+    log("  batch {}, fp32 unless noted; torch.var_mean(correction=0) for reference".format(
+        BATCH))
+    totals = dict.fromkeys(("kernel", "plain", "var_mean", "kernel_bf16"), 0.0)
+    fns = {
+        "kernel": batch_norm_stats,
+        "plain": batch_norm_stats_plain,
+        "var_mean": lambda x: torch.var_mean(x, dim=(0, 1, 2), correction=0),
+    }
+    calls = {k: [] for k in fns}  # the 34 calls of a step, for the profiler
+    n_elems = 0
+    for i, (H, C, n) in enumerate(FLAGSHIP_BN):
+        x = bn_input((BATCH, H, H, C), torch.float32, seed=700 + i)
+        xb = x.to(torch.bfloat16)
+        t = {k: cuda_ms(lambda fn=fn: fn(x)) for k, fn in fns.items()}
+        t["kernel_bf16"] = cuda_ms(lambda: batch_norm_stats(xb))
+        for k in totals:
+            totals[k] += n * t[k]
+        for k, fn in fns.items():
+            calls[k] += [lambda fn=fn, x=x: fn(x)] * n
+        n_elems += n * x.numel()
+        log("  {}x{}x{} (x{}): kernel {:.4f} ms ({:.0f} GB/s), plain {:.4f}, var_mean {:.4f}, "
+            "kernel bf16 {:.4f}".format(H, H, C, n, t["kernel"], x.numel() * 4 / t["kernel"] / 1e6,
+                                        t["plain"], t["var_mean"], t["kernel_bf16"]))
+    # one read of x, and a sum, a multiply and an add per element
+    t_bytes = n_elems * 4 / HBM_BYTES_PER_S
+    t_ops = 3.0 * n_elems / FP32_FLOPS_PER_S
+    bound, by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    log("  {} batch norms per batch of {}: kernel {:.4f} ms, plain {:.4f} ms, var_mean {:.4f} "
+        "ms, kernel bf16 {:.4f} ms; bound {:.4f} ms ({}; {:.1f} MB at 3.35 TB/s), the kernel "
+        "reaches {:.1%} of it".format(BN_LAYERS, BATCH, totals["kernel"], totals["plain"],
+                                      totals["var_mean"], totals["kernel_bf16"], bound, by,
+                                      n_elems * 4 / 1e6, bound / totals["kernel"]))
+    device = {k: profiled_ms(c) for k, c in calls.items()}
+    log("  the same 34 calls, device time of their kernels (torch.profiler, host gaps left "
+        "out, mean of 5): kernel {:.4f} ms ({:.1%} of the bound), plain {:.4f} ms, var_mean "
+        "{:.4f} ms".format(device["kernel"], bound / device["kernel"], device["plain"],
+                           device["var_mean"]))
+    return dict(ms=totals["kernel"], plain_ms=totals["plain"], library_ms=totals["var_mean"],
+                bound_ms=bound, bound_by=by)
+
+
 def train_batches(seed, steps, B):
     rng = np.random.RandomState(seed)
     X = rng.randn(steps, B, *IMAGE).astype(np.float32)
@@ -448,25 +618,25 @@ def phase_train():
     net = fresh_resnet18()
     trainer = Trainer(net, SGDMomentum(net, TRAIN_LR, 0.9), ema_decay=0.999, device=DEVICE)
     X, y = train_batches(2, 3, BATCH)
-    for k in KERNELS:
+    for k in TRAIN_KERNELS:
         k.launches = 0
     for step in range(3):
-        before = [k.launches for k in KERNELS]
+        before = [k.launches for k in TRAIN_KERNELS]
         loss, preds = trainer.step(X[step], y[step])
         torch.cuda.synchronize()
-        per_step = [k.launches - b for k, b in zip(KERNELS, before)]
-        log("  step {}: loss {:.6f}, launches forward/dx/dw {}".format(
+        per_step = [k.launches - b for k, b in zip(TRAIN_KERNELS, before)]
+        log("  step {}: loss {:.6f}, launches forward/dx/dw/bn_stats {}".format(
             step, float(loss), per_step))
-        require(per_step == [DW_LAYERS] * 3, "a depthwise layer missed a kernel")
+        require(per_step == TRAIN_WANT, "a depthwise layer or a batch norm missed a kernel")
         require(np.isfinite(float(loss)), "non-finite loss")
         require(tuple(preds.shape) == (BATCH,), "preds shape {}".format(tuple(preds.shape)))
-    launches = [k.launches for k in KERNELS]
+    launches = [k.launches for k in TRAIN_KERNELS]
     require(all(l.bn_initialized() for l in net.layers), "a batch norm was not initialised")
     require(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
             "non-finite parameters")
     require(all(bool(torch.isfinite(e).all()) for e in trainer._ema), "non-finite EMA")
-    log("  3 steps at batch {}: launches forward/dx/dw {} (want {} each)".format(
-        BATCH, launches, 3 * DW_LAYERS))
+    log("  3 steps at batch {}: launches forward/dx/dw/bn_stats {} (want {})".format(
+        BATCH, launches, [3 * n for n in TRAIN_WANT]))
     return trainer, launches
 
 
@@ -559,6 +729,10 @@ def kernel_class(name):
         return "depthwise dw"
     if "depthwise3x3_fwd" in n:
         return "depthwise forward"
+    if "bn_stats_partial" in n or "stats_finish" in n:
+        return "batch-norm statistics kernel"
+    if "matmul_kernel" in n:
+        return "hand-written GEMM"
     if "gemm" in n or "sm90_xmma" in n or "cutlass" in n or "cublas" in n:
         return "GEMM"
     if "conv" in n or "cudnn" in n or "dgrad" in n or "wgrad" in n:
@@ -762,17 +936,17 @@ def fresh_aug_trainer(**kwargs):
                    **kwargs)
 
 
-AUG_KERNELS = (augment_planes_fused,) + KERNELS
+AUG_KERNELS = (augment_planes_fused,) + TRAIN_KERNELS
 
 
 def phase_aug_train(dd):
-    """Returns the trainer, the launches of the four kernels over its eight
+    """Returns the trainer, the launches of the five kernels over its eight
     steps, and the rows of its last step."""
     log("== phase 10: ResNet18 trained by Trainer.step_augmented_indexed on the card")
     trainer = fresh_aug_trainer()
     gen = torch.Generator(device=DEVICE).manual_seed(10)
     aug = dict(AUG_CFG, mixup=MIXUP)
-    want = [1, DW_LAYERS, DW_LAYERS, DW_LAYERS]
+    want = [1] + TRAIN_WANT
     for k in AUG_KERNELS:
         k.launches = 0
     for step in range(5):
@@ -782,7 +956,7 @@ def phase_aug_train(dd):
                                                      dd.num_classes, **aug)
         torch.cuda.synchronize()
         per_step = [k.launches - b for k, b in zip(AUG_KERNELS, before)]
-        log("  step {}: loss {:.6f}, launches augment/forward/dx/dw {}".format(
+        log("  step {}: loss {:.6f}, launches augment/forward/dx/dw/bn_stats {}".format(
             step, float(loss), per_step))
         require(per_step == want, "a step missed a kernel")
         require(np.isfinite(float(loss)), "non-finite loss")
@@ -793,7 +967,8 @@ def phase_aug_train(dd):
         gen, dd.images, dd.labels, rows_stack, AUG_OUT, dd.num_classes, **aug)
     torch.cuda.synchronize()
     per_call = [k.launches - b for k, b in zip(AUG_KERNELS, before)]
-    log("  multi_step_augmented_indexed K=3: losses {}, launches augment/forward/dx/dw {}"
+    log("  multi_step_augmented_indexed K=3: losses {}, launches "
+        "augment/forward/dx/dw/bn_stats {}"
         .format([round(float(v), 6) for v in losses], per_call))
     require(per_call == [3 * n for n in want], "a step of the K=3 call missed a kernel")
     require(bool(torch.isfinite(losses).all()) and tuple(preds.shape) == (3, 2 * AUG_BATCH),
@@ -801,7 +976,7 @@ def phase_aug_train(dd):
     launches = [k.launches for k in AUG_KERNELS]
     require(all(bool(torch.isfinite(p).all()) for p in trainer.network.parameters()),
             "non-finite parameters")
-    log("  8 steps of {} trained images: launches augment/forward/dx/dw {}".format(
+    log("  8 steps of {} trained images: launches augment/forward/dx/dw/bn_stats {}".format(
         2 * AUG_BATCH, launches))
     return trainer, launches, rows_stack[-1]
 
@@ -916,6 +1091,193 @@ def phase_aug_slice():
     return launches
 
 
+def gemm_inputs(M, K, N, dtype, seed):
+    """Seeded a (M,K) and b (K,N) on the card, b scaled by 1/sqrt(K)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    a = torch.randn(M, K, generator=g, device=DEVICE).to(dtype)
+    b = (torch.randn(K, N, generator=g, device=DEVICE) / K ** 0.5).to(dtype)
+    return a, b
+
+
+def gemm_bound_ms(M, K, N, in_dtype, out_dtype, stats):
+    """(ms, what bounds it) of one GEMM (with its column statistics): the
+    larger of its bytes (a and b read once, y and the statistics written
+    once) over the memory rate, and its 2MNK flops (3MN more for the
+    statistics) over the card's rate for the input type: the fp32 cores for
+    fp32 (TF32 is off), the tensor cores for bf16."""
+    in_size, out_size = (2 if t == torch.bfloat16 else 4 for t in (in_dtype, out_dtype))
+    n_bytes = (M * K + K * N) * in_size + M * N * out_size + (2 * N * 4 if stats else 0)
+    ops = 2.0 * M * N * K + (3.0 * M * N if stats else 0.0)
+    rate = BF16_FLOPS_PER_S if in_dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gemm_cases():
+    """(label, M, K, N, input dtype, matmul_bn_stats' out dtype, how many on
+    the flagship's path at batch 64, 0 for the other shapes)."""
+    f32, b16 = torch.float32, torch.bfloat16
+    cases = [("pw {}x{}->{}".format(hw, K, N), BATCH * hw, K, N, f32, f32, n)
+             for hw, K, N, n in FLAGSHIP_PW]
+    cases.append(("dense", *FLAGSHIP_DENSE, f32, f32, 1))
+    for name, H, cin, cout in bn_fuse_ab.SHAPES:
+        for out in (b16, f32):
+            cases.append(("{} bf16, out {}".format(name, str(out).split(".")[1]),
+                          128 * H * H, cin, cout, b16, out, 0))
+    cases += [("JAX test", M, K, N, f32, f32, 0) for M, K, N in JAX_TEST_GEMMS]
+    return cases
+
+
+def phase_gemm():
+    """matmul and matmul_bn_stats against their plain versions, then timed.
+    Returns (matmul's numbers, matmul_bn_stats' numbers) over the flagship's
+    20 pointwise GEMMs and its dense head at batch 64 in fp32."""
+    log("== phase 11: matmul and matmul_bn_stats kernels vs plain on the card, and times "
+        "(CUDA events, median of 50 after 10 warm-ups)")
+    log("card:", card_line())
+    log("  limits: y within {0:g} x (|a| @ |b|) + 1e-6 of the plain version per element (plus "
+        "one bf16 step, 2^-7 of |y|, for bf16 y); the statistics as phase 6b with E[y^2]; "
+        "matmul_bn_stats twice bit-equal. cuBLAS is torch.matmul on the same inputs, for "
+        "reference".format(GEMM_RTOL))
+    keys = ("matmul", "stats", "plain", "stats_plain", "cublas")
+    totals = dict.fromkeys(keys, 0.0)
+    fns = {"matmul": matmul, "stats": matmul_bn_stats, "stats_plain": matmul_bn_stats_plain,
+           "cublas": torch.matmul}
+    calls = {k: [] for k in fns}  # the flagship's 21 GEMMs, for the profiler
+    bound = {"matmul": {}, "stats": {}}
+    err = {"matmul": 0.0, "stats": 0.0}
+    for i, (label, M, K, N, in_dtype, out_dtype, n) in enumerate(gemm_cases()):
+        a, b = gemm_inputs(M, K, N, in_dtype, seed=800 + i)
+        y = matmul(a, b)
+        ref = matmul_plain(a, b)
+        scale = GEMM_RTOL * matmul_plain(a.abs(), b.abs()) + 1e-6
+        ys, mean, var = matmul_bn_stats(a, b, out_dtype=out_dtype)
+        ys2, mean2, var2 = matmul_bn_stats(a, b, out_dtype=out_dtype)
+        ps, pmean, pvar = matmul_bn_stats_plain(a, b, out_dtype)
+        torch.cuda.synchronize()
+        require(y.dtype == torch.float32 and y.shape == (M, N) and ys.dtype == out_dtype
+                and ys.shape == (M, N), "GEMM outputs {} {}".format(y.dtype, ys.dtype))
+        y_err = (y - ref).abs()
+        y_ratio = (y_err / scale).max().item()
+        ys_err = (ys.float() - ps.float()).abs()
+        ys_limit = scale + (2 ** -7 * ps.float().abs() if out_dtype == torch.bfloat16 else 0)
+        ys_ratio = (ys_err / ys_limit).max().item()
+        dm, dv, s_ratio = stats_errors(mean, var, pmean, pvar, pvar + pmean * pmean)
+        same = torch.equal(ys, ys2) and torch.equal(mean, mean2) and torch.equal(var, var2)
+        del scale, ys_limit, ref, ps
+        t = {
+            "matmul": cuda_ms(lambda: matmul(a, b)),
+            "stats": cuda_ms(lambda: matmul_bn_stats(a, b, out_dtype=out_dtype)),
+            "plain": cuda_ms(lambda: matmul_plain(a, b)),
+            "stats_plain": cuda_ms(lambda: matmul_bn_stats_plain(a, b, out_dtype)),
+            "cublas": cuda_ms(lambda: torch.matmul(a, b)),
+        }
+        mm_bound, mm_by = gemm_bound_ms(M, K, N, in_dtype, torch.float32, False)
+        st_bound, st_by = gemm_bound_ms(M, K, N, in_dtype, out_dtype, True)
+        log("  {} ({}x{}x{}{}): matmul max|err| {:.3e} ({:.3f} of the limit), {:.4f} ms; "
+            "matmul_bn_stats y {:.3f}, mean {:.3e}, var {:.3e} ({:.3f}), repeat bit-equal {}, "
+            "{:.4f} ms; plain {:.4f} / {:.4f} ms; cuBLAS {:.4f} ms; bound {:.4f} ms ({}) / "
+            "{:.4f} ms ({})".format(
+                label, M, K, N, ", x{} layers".format(n) if n else "", y_err.max().item(),
+                y_ratio, t["matmul"], ys_ratio, dm, dv, s_ratio, same, t["stats"], t["plain"],
+                t["stats_plain"], t["cublas"], mm_bound, mm_by, st_bound, st_by))
+        require(y_ratio <= 1.0, "matmul disagrees with its plain version")
+        require(ys_ratio <= 1.0 and s_ratio <= 1.0,
+                "matmul_bn_stats disagrees with its plain version")
+        require(same, "two matmul_bn_stats runs differ")
+        if n:
+            for k in keys:
+                totals[k] += n * t[k]
+            for k, fn in fns.items():
+                calls[k] += [lambda fn=fn, a=a, b=b: fn(a, b)] * n
+            for k, (ms, by) in (("matmul", (mm_bound, mm_by)), ("stats", (st_bound, st_by))):
+                bound[k][by] = bound[k].get(by, 0.0) + n * ms
+            if in_dtype == torch.float32:
+                err["matmul"] = max(err["matmul"], y_err.max().item())
+                err["stats"] = max(err["stats"], ys_err.max().item(), dm, dv)
+    device = {k: profiled_ms(c) for k, c in calls.items()}
+    log("  the flagship's 21 GEMMs, device time of their kernels (torch.profiler, host gaps "
+        "left out, mean of 5): matmul {:.4f} ms, matmul_bn_stats {:.4f} ms, its plain version "
+        "{:.4f} ms, cuBLAS {:.4f} ms".format(device["matmul"], device["stats"],
+                                            device["stats_plain"], device["cublas"]))
+    out = []
+    for k, plain_key, library in (("matmul", "plain", totals["cublas"]),
+                                  ("stats", "stats_plain", None)):
+        total_bound = sum(bound[k].values())
+        by = max(bound[k], key=bound[k].get)
+        log("  flagship, 20 pointwise + dense at batch {}, fp32: {} {:.4f} ms, plain {:.4f} ms, "
+            "cuBLAS {:.4f} ms; bound {:.4f} ms (mostly {}), the kernel reaches {:.1%} of it"
+            .format(BATCH, "matmul" if k == "matmul" else "matmul_bn_stats", totals[k],
+                    totals[plain_key], totals["cublas"], total_bound, by,
+                    total_bound / totals[k]))
+        out.append(dict(max_abs_err=err[k], ms=totals[k], plain_ms=totals[plain_key],
+                        bound_ms=total_bound, bound_by=by, library_ms=library))
+    return out
+
+
+def phase_bn_fuse_ab():
+    """bn_fuse_ab.run on the card; returns the launches of matmul,
+    matmul_bn_stats and batch_norm_stats in that run."""
+    log("== phase 12: the BN-fusion A/B (dorknet_tpu_torch.utils.bn_fuse_ab), batch 128, "
+        "bf16; device ms the best of 2 rounds of the median of 5")
+    log("card:", card_line())
+    ab_kernels = (matmul, matmul_bn_stats, batch_norm_stats)
+    for k in ab_kernels:
+        k.launches = 0
+    results = bn_fuse_ab.run(rounds=2, runs=5)
+    torch.cuda.synchronize()
+    launches = [k.launches for k in ab_kernels]
+    for name, *_ in bn_fuse_ab.SHAPES:
+        ms = {v: results["{}_{}_device_ms".format(name, v)]
+              for v in ("torch", "cuda_fused", "cuda_split", "cuda_matmul")}
+        log("  {}: torch {:.4f} ms, cuda_fused {:.4f} ms, cuda_split {:.4f} ms, matmul alone "
+            "{:.4f} ms; fused speedup over torch {:.3f}; statistics rel err fused {:.3e}, split "
+            "{:.3e} (gate {:g}), ok {}".format(
+                name, ms["torch"], ms["cuda_fused"], ms["cuda_split"], ms["cuda_matmul"],
+                results[name + "_fused_speedup"], results[name + "_cuda_fused_stats_rel_err"],
+                results[name + "_cuda_split_stats_rel_err"], bn_fuse_ab.GATE,
+                results[name + "_stats_ok"]))
+        require(results[name + "_stats_ok"], "the A/B's statistics gate failed at " + name)
+    log("  launches matmul/matmul_bn_stats/batch_norm_stats {}".format(launches))
+    require(all(launches), "the A/B missed a kernel")
+    return launches
+
+
+def phase_accumulate():
+    """Trainer.accumulate_step on a fresh flagship; returns the launches of
+    its first call."""
+    log("== phase 13: ResNet18 trained by Trainer.accumulate_step on the card, K={} x {}"
+        .format(ACC_K, BATCH))
+    net = fresh_resnet18()
+    trainer = Trainer(net, SGDMomentum(net, TRAIN_LR, 0.9), ema_decay=0.999, device=DEVICE)
+    X, y = train_batches(13, 2 * ACC_K, BATCH)
+    # fresh batch norms: the pre-pass is one more forward, without a backward
+    fresh = [DW_LAYERS * (ACC_K + 1), DW_LAYERS * ACC_K, DW_LAYERS * ACC_K,
+             BN_LAYERS * (ACC_K + 1)]
+    wants = (fresh, [n * ACC_K for n in TRAIN_WANT])
+    launches = []
+    for call, want in enumerate(wants):
+        for k in TRAIN_KERNELS:
+            k.launches = 0
+        sl = slice(call * ACC_K, (call + 1) * ACC_K)
+        loss = trainer.accumulate_step(X[sl], y[sl])
+        torch.cuda.synchronize()
+        got = [k.launches for k in TRAIN_KERNELS]
+        launches.append(got)
+        log("  call {} ({} batch norms): loss {:.6f}, launches forward/dx/dw/bn_stats {} "
+            "(want {})".format(call, "fresh" if call == 0 else "set", float(loss), got, want))
+        require(got == want, "the accumulate step missed a kernel")
+        require(loss.shape == () and np.isfinite(float(loss)), "accumulate loss")
+    require(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
+            "non-finite parameters")
+    xs = torch.from_numpy(X[:ACC_K]).to(DEVICE)
+    ys = torch.from_numpy(y[:ACC_K]).to(DEVICE)
+    ms = cuda_ms(lambda: trainer.accumulate_step(xs, ys), warmup=2, iters=5)
+    log("  accumulate_step, {} x {} images on the card (CUDA events, median of 5 after 2): "
+        "{:.3f} ms = {:.0f} img/s".format(ACC_K, BATCH, ms, ACC_K * BATCH / ms * 1e3))
+    return launches[0]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a "
@@ -935,6 +1297,8 @@ def main():
     fwd = phase_times(runner, X)
     del runner, net_gpu, net_cpu
     bwd_err = phase_bwd_vs_plain()
+    bn_err = phase_bn_stats_vs_plain()
+    bn = phase_bn_stats_times()
     trainer, launches = phase_train()
     phase_train_twin()
     bwd = phase_bwd_times()
@@ -942,12 +1306,17 @@ def main():
     del trainer
     aug = phase_augment_vs_plain()
     aug_launches = phase_aug_slice()
+    mm, mm_stats = phase_gemm()
+    ab_launches = phase_bn_fuse_ab()
+    acc_launches = phase_accumulate()
 
     bound_ms, bound_by = flagship_bound_ms()
     dw_bound, dw_by = flagship_bound_ms(lambda C: 9 * C * 4)
     entry = dict(route="cuda", replaces="dorknet_tpu/ops/pallas/depthwise.py:205")
-    log("  launches: serving run forward {}; training run forward/dx/dw {}; augmented "
-        "training run augment/forward/dx/dw {}".format(serve_launches, launches, aug_launches))
+    log("  launches: serving run forward {}; training run forward/dx/dw/bn_stats {}; augmented "
+        "training run augment/forward/dx/dw/bn_stats {}; A/B run matmul/matmul_bn_stats/"
+        "bn_stats {}; accumulate run forward/dx/dw/bn_stats {}".format(
+            serve_launches, launches, aug_launches, ab_launches, acc_launches))
     log(json.dumps({"kernels": [
         dict(name="depthwise3x3", route="cuda",
              source="dorknet_tpu_torch/csrc/depthwise3x3.cu",
@@ -967,6 +1336,14 @@ def main():
              source="dorknet_tpu_torch/csrc/augment_planes.cu",
              replaces="dorknet_tpu/ops/pallas/augment.py:205", launches=aug_launches[0],
              library_ms=None, **aug),
+        dict(name="batch_norm_stats", route="cuda", source="dorknet_tpu_torch/csrc/bn_stats.cu",
+             replaces="dorknet_tpu/ops/pallas/bn_stats.py:34", launches=launches[3],
+             max_abs_err=bn_err, **bn),
+        dict(name="matmul", route="cuda", source="dorknet_tpu_torch/csrc/matmul.cu",
+             replaces="dorknet_tpu/ops/pallas/matmul.py:26", launches=ab_launches[0], **mm),
+        dict(name="matmul_bn_stats", route="cuda", source="dorknet_tpu_torch/csrc/matmul.cu",
+             replaces="dorknet_tpu/ops/pallas/matmul.py:78", launches=ab_launches[1],
+             **mm_stats),
     ]}))
     log("card:", card_line())
     log(json.dumps({"ok": True, "device": {

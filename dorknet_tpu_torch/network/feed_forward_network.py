@@ -84,6 +84,14 @@ class FeedForwardNetwork(nn.Module):
             return softmax_probs(x)
         return to_nchw(x)
 
+    def _train_forward(self, x):
+        """A train-mode pass over NHWC x without gradients: batch norm
+        normalises by the batch statistics and updates its running stats.
+        Returns the last layer's NHWC output."""
+        with torch.no_grad():
+            out, _, _ = self._run_layers(x, train=True)
+        return out
+
     def _loss_and_grads(self, x, y_one_hot, params):
         """One training forward and backward over NHWC x. Returns (loss,
         probs, grads): the reported loss (detached), the softmax probs, and
@@ -110,9 +118,7 @@ class FeedForwardNetwork(nn.Module):
             with torch.inference_mode():
                 return 0, self._test_fn(X)
         if self.loss_layer is None:
-            with torch.no_grad():
-                out, _, _ = self._run_layers(to_nhwc(X), train=True)
-            return 0, to_nchw(out)
+            return 0, to_nchw(self._train_forward(to_nhwc(X)))
         y = torch.as_tensor(y_one_hot, dtype=torch.float32, device=X.device)
         params = list(self.parameters())
         loss, probs, grads = self._loss_and_grads(to_nhwc(X), y, params)

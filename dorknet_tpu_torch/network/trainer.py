@@ -23,8 +23,9 @@ explicit ``torch.Generator`` on the trainer's device.
 The JAX package compiles each step into one program; here it runs eagerly.
 A fresh network's first step adopts the batch statistics into the running
 stats of every batch norm, an ordinary Python branch. ``multi_step`` and
-the ``multi_step_augmented*`` pair are loops of their single steps.
-``accumulate_step`` and ``remat`` are not ported yet.
+the ``multi_step_augmented*`` pair are loops of their single steps;
+``accumulate_step`` is a loop of K forward and backward passes with one
+update. ``remat`` is not ported yet.
 """
 
 import copy
@@ -106,6 +107,12 @@ class Trainer:
         """The step on NHWC float32 x and labels y, both on the device."""
         params = self._prepare()
         loss, probs, grads = self.network._loss_and_grads(x, y, params)
+        self._update(params, grads)
+        return loss, probs.argmax(dim=1)
+
+    def _update(self, params, grads):
+        """Clip the gradients, apply the optimiser's update to the parameters
+        in place, and advance the EMA."""
         grads = self._clip_grads(grads)
         with torch.no_grad():
             self._cache = self.optimiser.apply_update(
@@ -114,7 +121,38 @@ class Trainer:
                 d = self.ema_decay
                 torch._foreach_mul_(self._ema, d)
                 torch._foreach_add_(self._ema, torch._foreach_mul(params, 1.0 - d))
-        return loss, probs.argmax(dim=1)
+
+    def accumulate_step(self, X_stack, y_stack):
+        """One optimiser update from the mean gradient of K micro-batches.
+        X_stack: (K, B, C, H, W) (or (K, B, H, W, C) with input_layout
+        "NHWC"); y_stack: (K, B, classes). Each micro-batch's batch norms
+        normalise by its own statistics and fold them into the running
+        stats, carried from one micro-batch to the next. The K gradients are
+        summed, divided by K, clipped, and applied once; the EMA advances
+        once. Returns the mean reported loss as a device tensor.
+
+        On a network whose batch norms are unset, a train-mode pass over
+        micro-batch 0 first sets their running stats, as the JAX package's
+        pre-pass does (it discards that pass's gradients, so here only the
+        forward runs). The K micro-batches then fold into those stats,
+        micro-batch 0 again: the JAX package's documented double weighting
+        of micro-batch 0 on a fresh network (its gradient counts once)."""
+        K = len(X_stack)
+        if K < 1:
+            raise ValueError("accumulate_step needs at least one micro-batch")
+        network = self.network
+        if not all(l.bn_initialized() for l in network.layers):
+            network._train_forward(self._place(X_stack[0], y_stack[0])[0])
+            network._pending_grads = None
+        params = self._prepare()
+        g_sum, loss_sum = None, 0.0
+        for i in range(K):
+            x, y = self._place(X_stack[i], y_stack[i])
+            loss, _, grads = network._loss_and_grads(x, y, params)
+            g_sum = grads if g_sum is None else torch._foreach_add(g_sum, grads)
+            loss_sum = loss_sum + loss
+        self._update(params, torch._foreach_div(g_sum, K))
+        return loss_sum / K
 
     def multi_step(self, X_stack, y_stack):
         """K steps, one after another. X_stack: (K, B, ...), y_stack: (K, B,

@@ -71,6 +71,10 @@ def _bind(lib):
     lib.dorknet_augment_planes.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                            ctypes.c_float, ci, vp, ci]
     lib.dorknet_augment_planes.restype = ci
+    lib.dorknet_bn_stats.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, vp, ci]
+    lib.dorknet_bn_stats.restype = ci
+    lib.dorknet_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, ci]
+    lib.dorknet_matmul.restype = ci
     lib.dorknet_max_block_smem.argtypes = [ci]
     lib.dorknet_max_block_smem.restype = ci
     lib.dorknet_cuda_error_string.argtypes = [ci]

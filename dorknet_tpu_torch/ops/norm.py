@@ -11,10 +11,15 @@ package's hand-written backward: one-pass E[x²]−E[x]² statistics (clamped at
 
     dβ = Σ dy ;  dγ = Σ dy·x̂ ;  dx = γ/σ · (dy − dβ/N − x̂·dγ/N)
 
-with x̂ saved in x's dtype, as ``_bn_core_fwd`` saves it.
+with x̂ saved in x's dtype, as ``_bn_core_fwd`` saves it. The statistics come
+from ``batch_norm_stats`` (``ops/cuda/bn_stats.py``): on the card its
+hand-written kernel reads x once, as XLA's fusion of the same formula does in
+the JAX step; on the CPU its plain version.
 """
 
 import torch
+
+from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats
 
 
 def _reduce_dims(x):
@@ -27,12 +32,9 @@ class _BNCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
-        dims = _reduce_dims(x)
-        xf = x.float()
-        mean = xf.mean(dim=dims)
-        var = torch.clamp(torch.mean(xf * xf, dim=dims) - mean * mean, min=0.0)
+        mean, var = batch_norm_stats(x)
         inv = torch.rsqrt(var + eps)
-        x_hat = (xf - mean) * inv
+        x_hat = (x.float() - mean) * inv
         y = (gamma * x_hat + beta).to(x.dtype)
         std = torch.sqrt(var + eps)
         ctx.save_for_backward(x_hat.to(x.dtype), inv, gamma)

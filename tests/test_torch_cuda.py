@@ -15,9 +15,13 @@ from dorknet_tpu_torch.data_loading.device_augment import (  # noqa: E402
 from dorknet_tpu_torch.models import ResNet18  # noqa: E402
 from dorknet_tpu_torch.network import Trainer  # noqa: E402
 from dorknet_tpu_torch.ops.cuda.augment import augment_planes_fused  # noqa: E402
+from dorknet_tpu_torch.ops.cuda.bn_stats import (  # noqa: E402
+    batch_norm_stats, batch_norm_stats_plain)
 from dorknet_tpu_torch.ops.cuda.depthwise import (  # noqa: E402
     depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain, depthwise3x3_dx,
     depthwise3x3_dx_plain, depthwise3x3_plain)
+from dorknet_tpu_torch.ops.cuda.matmul import (  # noqa: E402
+    matmul, matmul_bn_stats, matmul_bn_stats_plain, matmul_plain)
 from dorknet_tpu_torch.optimisers import SGDMomentum  # noqa: E402
 from dorknet_tpu_torch.utils.seeded import seed_serving_weights  # noqa: E402
 
@@ -223,3 +227,140 @@ def test_augment_kernel_refuses_float_and_large_rotations(cuda):
     with pytest.raises(ValueError, match="bytes of shared memory"):
         augment_planes_fused(big, pb, (320, 320), **AUG_CFG)
     assert augment_planes_fused.launches == before
+
+
+def _within_stats_limit(mean, var, ref_mean, ref_var, rtol=2e-5):
+    """Per channel: mean within rtol x sqrt(E[x^2]), var within rtol x
+    E[x^2] (the scales of the fp32 sums' rounding), E[x^2] from the
+    reference."""
+    e2 = (ref_var + ref_mean * ref_mean).double()
+    return bool(((mean - ref_mean).abs().double() <= rtol * e2.sqrt() + 1e-12).all()
+                and ((var - ref_var).abs().double() <= rtol * e2 + 1e-12).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,shift", [
+    ((2, 9, 9, 24), 0.0), ((3, 5, 5, 7), 7.0), ((1, 1, 1, 1), 0.0), ((300, 40), -2.0),
+    ((8, 7, 7, 512), 0.0), ((2, 112, 112, 64), 7.0), ((4, 33, 33, 64), 0.0),
+])
+def test_bn_stats_kernel_matches_plain_and_repeats(cuda, shape, shift, dtype):
+    """Two launches, bit-equal; within the statistics' limits of the plain
+    version and of an fp64 reference."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = (torch.randn(*shape, generator=g, device=cuda) * 1.5 + shift).to(dtype)
+    before = batch_norm_stats.launches
+    mean, var = batch_norm_stats(x)
+    mean2, var2 = batch_norm_stats(x)
+    ref_mean, ref_var = batch_norm_stats_plain(x)
+    dims = tuple(range(x.dim() - 1))
+    x64 = x.double()
+    mean64 = x64.mean(dim=dims)
+    var64 = ((x64 - mean64) ** 2).mean(dim=dims)
+    torch.cuda.synchronize()
+    assert batch_norm_stats.launches == before + 2
+    assert mean.dtype == var.dtype == torch.float32 and mean.shape == (shape[-1],)
+    assert torch.equal(mean, mean2) and torch.equal(var, var2)
+    assert _within_stats_limit(mean, var, ref_mean, ref_var)
+    assert _within_stats_limit(mean.double(), var.double(), mean64, var64)
+
+
+def test_bn_stats_kernel_refuses_what_it_does_not_take(cuda):
+    before = batch_norm_stats.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        batch_norm_stats(torch.zeros(4, 6, 8, device=cuda).transpose(1, 2))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        batch_norm_stats(torch.zeros(4, 8, device=cuda, dtype=torch.float16))
+    assert batch_norm_stats.launches == before
+
+
+GEMM_CASES = [(64, 32, 48), (300, 512, 120), (8, 16, 128), (1, 1, 1), (129, 7, 130),
+              (257, 64, 256), (64, 0, 8)]
+
+
+def _gemm_inputs(device, M, K, N, dtype):
+    g = torch.Generator(device=device).manual_seed(M * 7 + K * 3 + N)
+    a = torch.randn(M, K, generator=g, device=device).to(dtype)
+    b = torch.randn(K, N, generator=g, device=device).to(dtype)
+    return a, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", GEMM_CASES)
+def test_matmul_kernel_matches_plain(cuda, M, K, N, dtype):
+    """Within 2e-5 of (|a| @ |b|) per element (fp32 sums over K in another
+    order; bf16 products are exact in fp32), one launch, fp32 out."""
+    a, b = _gemm_inputs(cuda, M, K, N, dtype)
+    before = matmul.launches
+    y = matmul(a, b)
+    ref = matmul_plain(a, b)
+    scale = matmul_plain(a.abs(), b.abs())
+    torch.cuda.synchronize()
+    assert matmul.launches == before + 1
+    assert y.dtype == torch.float32 and y.shape == (M, N)
+    assert bool(((y - ref).abs() <= 2e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", GEMM_CASES)
+def test_matmul_bn_stats_kernel_matches_plain_and_repeats(cuda, M, K, N, dtype, out_dtype):
+    """y as test_matmul_kernel_matches_plain, plus one bf16 step (2^-7 of
+    |y|) for bf16 y; the statistics within their limits of the plain
+    version's, which are taken from the fp32 product; two runs bit-equal."""
+    a, b = _gemm_inputs(cuda, M, K, N, dtype)
+    before = matmul_bn_stats.launches
+    y, mean, var = matmul_bn_stats(a, b, out_dtype=out_dtype)
+    y2, mean2, var2 = matmul_bn_stats(a, b, out_dtype=out_dtype)
+    ref, ref_mean, ref_var = matmul_bn_stats_plain(a, b, out_dtype)
+    limit = 2e-5 * matmul_plain(a.abs(), b.abs()) + 1e-6
+    if out_dtype == torch.bfloat16:
+        limit = limit + 2 ** -7 * ref.float().abs()
+    torch.cuda.synchronize()
+    assert matmul_bn_stats.launches == before + 2
+    assert y.dtype == out_dtype and y.shape == (M, N) and mean.shape == var.shape == (N,)
+    assert torch.equal(y, y2) and torch.equal(mean, mean2) and torch.equal(var, var2)
+    assert bool(((y.float() - ref.float()).abs() <= limit).all())
+    assert _within_stats_limit(mean, var, ref_mean, ref_var)
+
+
+def test_matmul_kernels_refuse_what_they_do_not_take(cuda):
+    """The port's (O, C) pointwise weight is not b: its transpose view is
+    refused, not copied; mixed types and devices are refused."""
+    a = torch.zeros(4, 8, device=cuda)
+    w = torch.zeros(16, 8, device=cuda)
+    before = (matmul.launches, matmul_bn_stats.launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul(a, w.t())
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul_bn_stats(a, w.t())
+    with pytest.raises(TypeError, match="or both bfloat16"):
+        matmul(a, w.t().contiguous().bfloat16())
+    with pytest.raises(ValueError, match="on"):
+        matmul(a, w.t().contiguous().cpu())
+    assert (matmul.launches, matmul_bn_stats.launches) == before
+    assert matmul(a, w.t().contiguous()).shape == (4, 16)
+
+
+def test_accumulate_step_on_card_matches_cpu(cuda):
+    """ResNet18 at full width, fresh BN, one accumulate_step of K = 2
+    micro-batches of 2 at 65 px on the card and on the CPU: the mean loss
+    within 1e-4 relative (computed before the update, from the same
+    weights); the BN pre-pass and the two micro-batches launch
+    batch_norm_stats 34 x 3 times, the depthwise forward 48 and dx and dw 32
+    each."""
+    np.random.seed(0)
+    net_cpu = ResNet18("dogs", num_classes=120)
+    np.random.seed(0)
+    net_gpu = ResNet18("dogs", num_classes=120)
+    t_cpu = Trainer(net_cpu, SGDMomentum(net_cpu, 0.001, 0.9), device="cpu")
+    t_gpu = Trainer(net_gpu, SGDMomentum(net_gpu, 0.001, 0.9), device=cuda)
+    rng = np.random.RandomState(5)
+    X = rng.randn(2, 2, 3, 65, 65).astype(np.float32)
+    y = np.eye(120, dtype=np.float32)[rng.randint(0, 120, (2, 2))]
+    want = t_cpu.accumulate_step(X, y)
+    kernels = (depthwise3x3, depthwise3x3_dx, depthwise3x3_dw, batch_norm_stats)
+    counts = [k.launches for k in kernels]
+    got = t_gpu.accumulate_step(X, y)
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [48, 32, 32, 102]
+    assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))

@@ -185,6 +185,8 @@ def test_port_imports_no_jax():
             "import dorknet_tpu_torch.ops.augment\n"
             "import dorknet_tpu_torch.data_loading.device_dataset\n"
             "import dorknet_tpu_torch.data_loading.prefetch\n"
+            "import dorknet_tpu_torch.ops.cuda.bn_stats, dorknet_tpu_torch.ops.cuda.matmul\n"
+            "import dorknet_tpu_torch.utils.autotune, dorknet_tpu_torch.utils.bn_fuse_ab\n"
             "bad = [m for m in ('jax', 'h5py', 'cv2', 'dorknet_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
