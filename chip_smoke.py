@@ -11,21 +11,28 @@ Phases (each checks its results; any failure ends the run non-zero with no
 "ok" line):
 
 1. build: compile the hand-written CUDA kernels from ``dorknet_tpu_torch/csrc``
-   with nvcc (sm_90a) and print the card's name and power limit;
+   with nvcc (sm_90a), print the card's name and power limit, and require
+   ``HGMMA`` (wgmma) in the SASS of every tensor-core GEMM kernel
+   (``cuobjdump -sass``);
 2. kernel vs plain: ``depthwise3x3`` against its plain PyTorch version on the
-   card at the flagship's seven depthwise shapes at batch 64, and an odd
-   9x9x24, in fp32 and bf16;
+   card at the flagship's seven depthwise shapes at batch 64, an odd 9x9x24
+   (both on the channel-vector route) and a 9x9x6 (the scalar route), in
+   fp32 and bf16; the vector route bit-equal to the scalar route;
 3. the slice: ResNet-18-depsep at full width (225 px, 120 classes), seeded
    He-normal weights and calibrated BN statistics, served by
    ``InferenceRunner(batch_size=64, device="cuda").predict_probs`` on 150
    images (three dispatches, the last padded); every depthwise layer of every
-   dispatch must launch the kernel, and the probs must match the same
+   dispatch must launch the kernel on the channel-vector route (here and in
+   every later path, fp32 and bf16 flow), and the probs must match the same
    network's forward on CPU tensors;
 4. serving: ``BatchingServer`` with 64 concurrent single-image requests and
    one 5-image request;
 5. times (CUDA events, median of 50 after 10 warm-ups): per depthwise shape
-   the kernel, the plain version and cuDNN's grouped conv; the served
-   forward at batch 64 in fp32 and in bf16 flow;
+   the kernel's two routes (in turns), the plain version and cuDNN's grouped
+   conv; the 16 layers' device time (``device_ms``) of the vector route,
+   the scalar route (in turns: old, new, new, old), cuDNN and the vector
+   route at each strip width; the served forward at batch 64 in fp32 and in
+   bf16 flow;
 6. backward kernels vs plain: ``depthwise3x3_dx`` and ``depthwise3x3_dw``
    against their plain PyTorch versions at the same shapes, in fp32 and
    bf16; two dw runs must be bit-equal;
@@ -69,25 +76,32 @@ Phases (each checks its results; any failure ends the run non-zero with no
     augmented step;
 11. GEMM: ``matmul`` and ``matmul_bn_stats`` against their plain versions
     at the flagship's 20 pointwise GEMMs and its dense head at batch 64 in
-    fp32, the BN-fusion A/B's two shapes in bf16 (y in bf16 and in fp32) and
-    the JAX package's test shapes; two ``matmul_bn_stats`` runs bit-equal;
-    each timed against its plain version and cuBLAS (``torch.matmul``);
+    fp32 (the CUDA-core route), the BN-fusion A/B's two shapes in bf16 (y in
+    bf16 and in fp32) and the JAX package's test shapes in fp32 and bf16
+    (every bf16 case on the tensor-core route); two ``matmul_bn_stats`` runs
+    bit-equal; each timed against its plain version and cuBLAS; at the A/B's
+    shapes both routes in turns (events and device time), against their
+    bounds and ``torch.mm(out_dtype=float32)`` / ``torch.matmul`` in bf16;
 12. the BN-fusion A/B (``dorknet_tpu_torch.utils.bn_fuse_ab.run``): the
-    torch, fused and split variants' device ms per shape, and its 2e-2
-    statistics gate;
+    torch, fused and split variants' ms per shape (CUDA events) and their
+    kernels' device time, its 2e-2 statistics gate, and the route its GEMMs
+    took (the tensor cores);
 13. ``Trainer.accumulate_step`` on a fresh flagship, K = 2 micro-batches of
     64: the BN pre-pass and the two micro-batches launch
     ``batch_norm_stats`` 34 x 3 times, the depthwise forward 48 and dx and
     dw 32 each, with a finite loss; a second call without the pre-pass, and
     its time.
 
-The line before the last is a JSON object of the kernels of the paths; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
-script exits non-zero and prints no result.
+The line before the last is a JSON object of the kernels of the paths (with
+each kernel's launches by route, and both routes' times); the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
+non-zero and prints no result.
 """
 
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -111,10 +125,11 @@ from dorknet_tpu_torch.ops.cuda.augment import (
 from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats, batch_norm_stats_plain
 from dorknet_tpu_torch.ops.cuda.build import load_library
 from dorknet_tpu_torch.ops.cuda.depthwise import (
-    depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain, depthwise3x3_dx,
-    depthwise3x3_dx_plain, depthwise3x3_plain)
-from dorknet_tpu_torch.ops.cuda.matmul import (matmul, matmul_bn_stats, matmul_bn_stats_plain,
-                                               matmul_plain)
+    _dw_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain, depthwise3x3_dx,
+    depthwise3x3_dx_plain, depthwise3x3_plain, launch_forward)
+from dorknet_tpu_torch.ops.cuda.matmul import (
+    _gemm_route, launch_matmul, launch_matmul_bn_stats, matmul, matmul_bn_stats,
+    matmul_bn_stats_plain, matmul_plain)
 from dorknet_tpu_torch.optimisers import SGDMomentum
 from dorknet_tpu_torch.utils import bn_fuse_ab
 from dorknet_tpu_torch.utils.autotune import measure_device_ms
@@ -138,6 +153,8 @@ FLAGSHIP_DW = [
     (56, 64, 2, 1), (28, 128, 2, 1), (14, 256, 2, 1),
 ]
 ODD_DW = [(9, 24, 1), (9, 24, 2)]
+SCALAR_DW = [(9, 6, 1), (9, 6, 2)]  # C not a multiple of 4: the scalar route
+DW_STRIPS = (1, 2, 4, 8)  # the vector route's strip widths, timed in phase 5
 DW_LAYERS = sum(n for *_, n in FLAGSHIP_DW)  # 16
 
 # the flagship's train-mode batch norms: (H = W, C, how many) of their inputs
@@ -188,7 +205,13 @@ CHUNK_BYTES = 64 << 20
 AUG_HSV_OPS, AUG_LERP_OPS, AUG_SHIFT_OPS = 39, 7, 6
 
 
+_START = time.perf_counter()
+
+
 def log(*args):
+    """Print a line; a phase's heading carries the seconds since the start."""
+    if args and str(args[0]).startswith("== "):
+        args = ("[{:.1f} s]".format(time.perf_counter() - _START),) + args
     print(*args, flush=True)
 
 
@@ -199,6 +222,25 @@ class CheckFailed(RuntimeError):
 def require(cond, what):
     if not cond:
         raise CheckFailed(what)
+
+
+def reset_launches(kernels):
+    """Set each kernel's launch count, and its counts per route, to 0."""
+    for k in kernels:
+        k.launches = 0
+        for route in getattr(k, "launches_by_route", {}):
+            k.launches_by_route[route] = 0
+
+
+def require_vector_route(what, before=None):
+    """Every depthwise forward since ``before`` (a copy of the per-route
+    counts; default 0) took the channel-vector route, and at least one ran."""
+    by = depthwise3x3.launches_by_route
+    before = before or dict.fromkeys(by, 0)
+    delta = {r: by[r] - before[r] for r in by}
+    log("  {}: depthwise3x3 launches by route {}".format(what, delta))
+    require(delta["scalar"] == 0 and delta["vector"] > 0,
+            "{}: a depthwise layer missed the channel-vector route".format(what))
 
 
 def card_line():
@@ -213,23 +255,42 @@ def cuda_ms(fn, warmup=10, iters=50):
     return measure_device_ms(fn, runs=iters, warmup=warmup)
 
 
-def profiled_ms(calls, repeats=5):
-    """Device ms of one pass over ``calls`` (thunks): the time of every
-    kernel they launch, from torch.profiler, summed, with the host's gaps
-    between launches left out; the mean of ``repeats`` passes after one
-    warm-up pass."""
+def device_ms(calls, repeats=5):
+    """Device ms of one pass over ``calls`` (thunks), with the host's gaps
+    between launches taken out: a spin kernel holds the card while the host
+    queues a pass behind it, so the pass runs back to back between two CUDA
+    events; the mean of ``repeats`` passes after one warm-up pass. It counts
+    the card's own gap between queued kernels (about a µs each). A pass is
+    queued alone because the card takes only about a thousand pending
+    launches; a short list is repeated within a pass up to 20 calls, so the
+    events' own few µs weigh little. If the spin ended before the host had
+    queued the pass, it spins longer and measures again. (torch.profiler's
+    kernel records, summed, dropped some kernels in some profiling sessions
+    on an H100 host.)"""
     for fn in calls:
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            for fn in calls:
-                fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / repeats
+    inner = max(1, 20 // len(calls))
+    total, spin = 0.0, 20_000_000  # cycles: about 10 ms
+    for _ in range(repeats):
+        for _ in range(4):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda._sleep(spin)
+            start.record()
+            for _ in range(inner):
+                for fn in calls:
+                    fn()
+            end.record()
+            queued_ahead = not start.query()  # the spin still held the card
+            torch.cuda.synchronize()
+            if queued_ahead:
+                break
+            spin *= 4
+        else:
+            raise CheckFailed("the host could not queue {} calls ahead of the card".format(
+                len(calls)))
+        total += start.elapsed_time(end)
+    return total / repeats / inner
 
 
 def dw_inputs(N, H, C, dtype, seed):
@@ -243,6 +304,18 @@ def dw_inputs(N, H, C, dtype, seed):
     return x, w
 
 
+def sass_hgmma(path):
+    """(the tensor-core GEMM kernels in the library, how many of them have
+    HGMMA, the SASS of wgmma, in their code), from cuobjdump -sass."""
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs = [f for f in re.split(r"\n\s*Function : ", sass)[1:]
+             if "matmul_tc_kernel" in f.split("\n", 1)[0]]
+    return len(funcs), sum("HGMMA" in f for f in funcs)
+
+
 def phase_build():
     log("== phase 1: build")
     log("card:", card_line())
@@ -251,22 +324,32 @@ def phase_build():
     for line in kernels.compiler_log.splitlines():
         if "registers" in line or "spill" in line:
             log("ptxas:", line.strip())
+    n_tc, n_hgmma = sass_hgmma(kernels.path)
+    log("  SASS: {} tensor-core GEMM kernels, {} with HGMMA".format(n_tc, n_hgmma))
+    require(n_tc == 4 and n_hgmma == n_tc, "the tensor-core GEMM's SASS lacks HGMMA")
 
 
 def phase_kernel_vs_plain():
     """Returns the largest fp32 max-abs error at the flagship's shapes."""
-    log("== phase 2: depthwise3x3 kernel vs plain on the card")
+    log("== phase 2: depthwise3x3 kernel vs plain on the card; the channel-vector route "
+        "against the scalar route, bit-equal")
     worst = 0.0
     cases = [(H, C, s, BATCH) for H, C, s, _ in FLAGSHIP_DW] + \
-            [(H, C, s, 4) for H, C, s in ODD_DW]
+            [(H, C, s, 4) for H, C, s in ODD_DW + SCALAR_DW]
     for i, (H, C, stride, N) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             x, w = dw_inputs(N, H, C, dtype, seed=i)
+            route = _dw_route(x)
             y = depthwise3x3(x, w, stride)
+            ys = launch_forward(x, w, stride, "scalar")
             ref = depthwise3x3_plain(x, w, stride)
             torch.cuda.synchronize()
             require(y.dtype == dtype and y.shape == ref.shape,
                     "output {} {}".format(y.dtype, tuple(y.shape)))
+            require(route == ("scalar" if C % 4 else "vector"),
+                    "{}x{}x{} took the {} route".format(H, H, C, route))
+            same = bool(torch.equal(y, ys))
+            require(same, "the {} route differs from the scalar route".format(route))
             err = (y.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             if dtype == torch.float32:
@@ -275,8 +358,10 @@ def phase_kernel_vs_plain():
                     worst = max(worst, err)
             else:
                 limit = 1e-2
-            log("  N={} {}x{}x{} s{} {}: max|err| {:.3e} (limit {:.3e}, max|y| {:.3f})"
-                .format(N, H, H, C, stride, str(dtype).split(".")[1], err, limit, scale))
+            log("  N={} {}x{}x{} s{} {}: {} route, bit-equal to the scalar route {}; max|err| "
+                "{:.3e} (limit {:.3e}, max|y| {:.3f})".format(
+                    N, H, H, C, stride, str(dtype).split(".")[1], route, same, err, limit,
+                    scale))
             require(err <= limit, "depthwise3x3 disagrees with its plain version")
     return worst
 
@@ -295,9 +380,10 @@ def build_nets():
 def phase_slice(net_cpu, runner, X):
     """Returns the depthwise launches of the served run."""
     log("== phase 3: ResNet18 served by InferenceRunner on the card")
-    depthwise3x3.launches = batch_norm_stats.launches = 0
+    reset_launches((depthwise3x3, batch_norm_stats))
     probs = runner.predict_probs(X)
     torch.cuda.synchronize()
+    require_vector_route("served run")
     launches = depthwise3x3.launches
     dispatches = -(-X.shape[0] // runner.batch_size)
     log("  {} images, {} dispatches, depthwise3x3 launches {} (want {}), batch_norm_stats "
@@ -380,42 +466,92 @@ def flagship_bound_ms(extra_bytes_per_layer=lambda C: 0):
 
 
 def phase_times(runner, X):
-    """Returns the kernel, plain and cuDNN ms summed over the flagship's 16
-    depthwise layers at batch 64, fp32."""
+    """Returns the kernel's (both routes), the plain version's and cuDNN's ms
+    summed over the flagship's 16 depthwise layers at batch 64, fp32: CUDA
+    events around each call, and the kernels' device time."""
     card = card_line()
     log("== phase 5: times (CUDA events, median of 50 after 10 warm-ups)")
     log("card:", card)
-    log("  depthwise 3x3, batch {}, fp32 unless noted; cuDNN is F.conv2d(groups=C) "
-        "on the channels-last view, for reference".format(BATCH))
-    totals = {"kernel": 0.0, "plain": 0.0, "cudnn": 0.0, "kernel_bf16": 0.0}
+    log("  depthwise 3x3, batch {}, fp32 unless noted; 'kernel' is the channel-vector route, "
+        "'scalar' the scalar route (events in turns: scalar, vector, vector, scalar); cuDNN is "
+        "F.conv2d(groups=C) on the channels-last view, for reference".format(BATCH))
+    keys = ("kernel", "scalar", "plain", "cudnn", "kernel_bf16")
+    totals = dict.fromkeys(keys, 0.0)
+    # the 16 layers' calls, for device time: the routes in fp32 and bf16, cuDNN
+    calls = {k: [] for k in ("vector", "scalar", "cudnn", "vector_bf16", "scalar_bf16",
+                             "cudnn_bf16")}
     total_bytes = 0
     with torch.inference_mode():
         for i, (H, C, stride, n_layers) in enumerate(FLAGSHIP_DW):
             x, w = dw_inputs(BATCH, H, C, torch.float32, seed=100 + i)
             xb = x.to(torch.bfloat16)
             xc, wc = x.permute(0, 3, 1, 2), w.unsqueeze(1)
+            xcb, wcb = xb.permute(0, 3, 1, 2), wc.to(torch.bfloat16)
+            turns = {"vector": [], "scalar": []}
+            for route in ("scalar", "vector", "vector", "scalar"):
+                turns[route].append(cuda_ms(lambda r=route: launch_forward(x, w, stride, r)))
             t = {
-                "kernel": cuda_ms(lambda: depthwise3x3(x, w, stride)),
+                "kernel": statistics.mean(turns["vector"]),
+                "scalar": statistics.mean(turns["scalar"]),
                 "plain": cuda_ms(lambda: depthwise3x3_plain(x, w, stride)),
                 "cudnn": cuda_ms(lambda: F.conv2d(xc, wc, stride=stride, padding=1,
                                                   groups=C)),
                 "kernel_bf16": cuda_ms(lambda: depthwise3x3(xb, w, stride)),
             }
+            for route in ("vector", "scalar"):
+                calls[route] += [lambda x=x, w=w, s=stride, r=route:
+                                 launch_forward(x, w, s, r)] * n_layers
+                calls[route + "_bf16"] += [lambda x=xb, w=w, s=stride, r=route:
+                                           launch_forward(x, w, s, r)] * n_layers
+            for tw in DW_STRIPS:
+                for dt, xx in (("", x), ("_bf16", xb)):
+                    calls.setdefault("tw{}{}".format(tw, dt), []).extend(
+                        [lambda x=xx, w=w, s=stride, tw=tw:
+                         launch_forward(x, w, s, "vector", tw)] * n_layers)
+            calls["cudnn"] += [lambda x=xc, w=wc, s=stride, C=C:
+                               F.conv2d(x, w, stride=s, padding=1, groups=C)] * n_layers
+            calls["cudnn_bf16"] += [lambda x=xcb, w=wcb, s=stride, C=C:
+                                    F.conv2d(x, w, stride=s, padding=1, groups=C)] * n_layers
             nbytes = dw_bytes(BATCH, H, C, stride)
             total_bytes += n_layers * nbytes
             for k in totals:
                 totals[k] += n_layers * t[k]
-            log("  {}x{}x{} s{} (x{} layers): kernel {:.4f} ms ({:.0f} GB/s), plain {:.4f} ms, "
-                "cuDNN {:.4f} ms, kernel bf16 {:.4f} ms".format(
+            log("  {}x{}x{} s{} (x{} layers): kernel {:.4f} ms ({:.0f} GB/s), scalar {:.4f} ms, "
+                "plain {:.4f} ms, cuDNN {:.4f} ms, kernel bf16 {:.4f} ms".format(
                     H, H, C, stride, n_layers, t["kernel"], nbytes / t["kernel"] / 1e6,
-                    t["plain"], t["cudnn"], t["kernel_bf16"]))
+                    t["scalar"], t["plain"], t["cudnn"], t["kernel_bf16"]))
+        # device time of the 16 layers, the routes in turns (old, new, new, old)
+        device = {k: [] for k in calls}
+        for route in ("scalar", "vector", "vector", "scalar"):
+            for k in (route, route + "_bf16"):
+                device[k].append(device_ms(calls[k]))
+        for k in calls:
+            if not device[k]:  # cuDNN and the strip widths, once each
+                device[k].append(device_ms(calls[k]))
+    dev = {k: statistics.mean(v) for k, v in device.items()}
     bound_ms = total_bytes / HBM_BYTES_PER_S * 1e3
-    log("  16 layers per batch of {}: kernel {:.4f} ms, plain {:.4f} ms, cuDNN {:.4f} ms, "
-        "kernel bf16 {:.4f} ms".format(BATCH, totals["kernel"], totals["plain"],
-                                       totals["cudnn"], totals["kernel_bf16"]))
-    log("  fp32 bytes bound: {:.1f} MB per batch -> {:.4f} ms at 3.35 TB/s; kernel "
-        "reaches {:.1%} of it".format(total_bytes / 1e6, bound_ms,
-                                      bound_ms / totals["kernel"]))
+    log("  16 layers per batch of {}: kernel {:.4f} ms, scalar {:.4f} ms, plain {:.4f} ms, "
+        "cuDNN {:.4f} ms, kernel bf16 {:.4f} ms".format(
+            BATCH, totals["kernel"], totals["scalar"], totals["plain"], totals["cudnn"],
+            totals["kernel_bf16"]))
+    log("  the same 16 layers, device time (calls queued behind a spin kernel, host gaps "
+        "left out, mean of 5; routes in turns {}): fp32 vector {:.4f} ms, scalar {:.4f} ms, cuDNN "
+        "{:.4f} ms; bf16 vector {:.4f} ms, scalar {:.4f} ms, cuDNN {:.4f} ms".format(
+            {k: [round(v, 4) for v in device[k]] for k in ("vector", "scalar")},
+            dev["vector"], dev["scalar"], dev["cudnn"], dev["vector_bf16"], dev["scalar_bf16"],
+            dev["cudnn_bf16"]))
+    log("  the vector route at each strip width for all 16 layers, device ms (the route "
+        "picks dw_strip's): fp32 {}; bf16 {}".format(
+            {tw: round(dev["tw{}".format(tw)], 4) for tw in DW_STRIPS},
+            {tw: round(dev["tw{}_bf16".format(tw)], 4) for tw in DW_STRIPS}))
+    log("  fp32 bytes bound: {:.1f} MB per batch -> {:.4f} ms at 3.35 TB/s; device time "
+        "reaches {:.1%} of it (vector route), {:.1%} (scalar route), {:.1%} (cuDNN); bf16 "
+        "bound {:.4f} ms, the vector route reaches {:.1%}".format(
+            total_bytes / 1e6, bound_ms, bound_ms / dev["vector"], bound_ms / dev["scalar"],
+            bound_ms / dev["cudnn"], bound_ms / 2, bound_ms / 2 / dev["vector_bf16"]))
+    totals.update(device_vector=dev["vector"], device_scalar=dev["scalar"],
+                  device_cudnn=dev["cudnn"], device_vector_bf16=dev["vector_bf16"],
+                  device_scalar_bf16=dev["scalar_bf16"], device_cudnn_bf16=dev["cudnn_bf16"])
 
     log("card:", card)
     net = runner.network
@@ -425,14 +561,26 @@ def phase_times(runner, X):
         p32 = net._test_fn(x64).float()
         config.set_compute_dtype(torch.bfloat16)
         try:
+            before = dict(depthwise3x3.launches_by_route)
             ms16 = cuda_ms(lambda: net._test_fn(x64))
             p16 = net._test_fn(x64).float()
+            torch.cuda.synchronize()
+            require_vector_route("served forward, bf16 flow", before)
         finally:
             config.set_compute_dtype(torch.float32)
     dprob = (p16 - p32).abs().max().item()
     log("  served forward, batch {} (device time of _test_fn): fp32 {:.3f} ms/batch = "
         "{:.0f} img/s; bf16 flow {:.3f} ms/batch = {:.0f} img/s, max|dprob| vs fp32 {:.3e}"
         .format(BATCH, ms32, BATCH / ms32 * 1e3, ms16, BATCH / ms16 * 1e3, dprob))
+    with torch.inference_mode():
+        per_call, by_class, _, n_kernels = device_profile(lambda: net._test_fn(x64), steps=5)
+    busy = sum(by_class.values())
+    if busy:
+        log("  profiler, served forward fp32 (host clock with the profiler on: {:.3f} ms a "
+            "batch): {} kernels, busy {:.3f} ms, idle share {:.1%}; {}".format(
+                per_call, n_kernels, busy, max(0.0, 1.0 - busy / per_call),
+                ", ".join("{} {:.3f} ms ({:.1%})".format(cls, ms, ms / busy) for cls, ms in
+                          sorted(by_class.items(), key=lambda kv: -kv[1]))))
     host = []
     for _ in range(12):
         t0 = time.perf_counter()
@@ -590,8 +738,8 @@ def phase_bn_stats_times():
         "reaches {:.1%} of it".format(BN_LAYERS, BATCH, totals["kernel"], totals["plain"],
                                       totals["var_mean"], totals["kernel_bf16"], bound, by,
                                       n_elems * 4 / 1e6, bound / totals["kernel"]))
-    device = {k: profiled_ms(c) for k, c in calls.items()}
-    log("  the same 34 calls, device time of their kernels (torch.profiler, host gaps left "
+    device = {k: device_ms(c) for k, c in calls.items()}
+    log("  the same 34 calls, device time (calls queued behind a spin kernel, host gaps left "
         "out, mean of 5): kernel {:.4f} ms ({:.1%} of the bound), plain {:.4f} ms, var_mean "
         "{:.4f} ms".format(device["kernel"], bound / device["kernel"], device["plain"],
                            device["var_mean"]))
@@ -618,8 +766,7 @@ def phase_train():
     net = fresh_resnet18()
     trainer = Trainer(net, SGDMomentum(net, TRAIN_LR, 0.9), ema_decay=0.999, device=DEVICE)
     X, y = train_batches(2, 3, BATCH)
-    for k in TRAIN_KERNELS:
-        k.launches = 0
+    reset_launches(TRAIN_KERNELS)
     for step in range(3):
         before = [k.launches for k in TRAIN_KERNELS]
         loss, preds = trainer.step(X[step], y[step])
@@ -631,6 +778,7 @@ def phase_train():
         require(np.isfinite(float(loss)), "non-finite loss")
         require(tuple(preds.shape) == (BATCH,), "preds shape {}".format(tuple(preds.shape)))
     launches = [k.launches for k in TRAIN_KERNELS]
+    require_vector_route("training run")
     require(all(l.bn_initialized() for l in net.layers), "a batch norm was not initialised")
     require(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
             "non-finite parameters")
@@ -731,7 +879,7 @@ def kernel_class(name):
         return "depthwise forward"
     if "bn_stats_partial" in n or "stats_finish" in n:
         return "batch-norm statistics kernel"
-    if "matmul_kernel" in n:
+    if "matmul_kernel" in n or "matmul_tc_kernel" in n:
         return "hand-written GEMM"
     if "gemm" in n or "sm90_xmma" in n or "cutlass" in n or "cublas" in n:
         return "GEMM"
@@ -740,6 +888,31 @@ def kernel_class(name):
     if "multi_tensor_apply" in n:
         return "optimiser, clip and EMA (_foreach)"
     return "elementwise and reductions"
+
+
+def device_profile(fn, steps=3):
+    """torch.profiler over ``steps`` calls of fn. Returns the host ms a call
+    with the profiler on, and the device ms a call by kernel class and by
+    kernel name, and the kernels a call. Device-side events only (kernels,
+    copies): a CPU op's device time is the same kernels' time again."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t0) * 1e3
+    by_class, by_name, n_kernels = {}, {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n_kernels += evt.count
+        ms = evt.device_time_total / 1e3 / steps
+        cls = kernel_class(evt.key)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        by_name[evt.key] = by_name.get(evt.key, 0.0) + ms
+    return span_ms / steps, by_class, by_name, n_kernels // steps
 
 
 def phase_train_times(trainer):
@@ -753,8 +926,10 @@ def phase_train_times(trainer):
     ms32 = cuda_ms(lambda: trainer.step(x, yt), warmup=3, iters=10)
     config.set_compute_dtype(torch.bfloat16)
     try:
+        before = dict(depthwise3x3.launches_by_route)
         ms16 = cuda_ms(lambda: trainer.step(x, yt), warmup=3, iters=10)
         loss16 = float(trainer.step(x, yt)[0])
+        require_vector_route("Trainer.step, bf16 flow", before)
     finally:
         config.set_compute_dtype(torch.float32)
     require(np.isfinite(loss16), "non-finite bf16-flow loss")
@@ -762,34 +937,14 @@ def phase_train_times(trainer):
         "{:.0f} img/s (loss {:.4f})".format(BATCH, ms32, BATCH / ms32 * 1e3, ms16,
                                             BATCH / ms16 * 1e3, loss16))
 
-    steps = 3
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer.step(x, yt)
-        torch.cuda.synchronize()
-        span_ms = (time.perf_counter() - t0) * 1e3
-    by_class, by_name, n_kernels = {}, {}, 0
-    for evt in prof.key_averages():
-        # device-side events only (kernels, copies): a CPU op's device time
-        # is the same kernels' time again
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = evt.device_time_total
-        n_kernels += evt.count
-        cls = kernel_class(evt.key)
-        by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3 / steps
-        by_name[evt.key] = by_name.get(evt.key, 0.0) + dev_us / 1e3 / steps
+    per_step, by_class, by_name, n_kernels = device_profile(lambda: trainer.step(x, yt))
     busy = sum(by_class.values())
-    per_step = span_ms / steps
     if busy == 0.0:
         log("  profiler: no device time recorded")
         return ms32
     log("  profiler, fp32 step (host clock with the profiler on: {:.3f} ms a step): {} "
         "kernels a step, busy {:.3f} ms, idle share {:.1%}".format(
-            per_step, n_kernels // steps, busy, max(0.0, 1.0 - busy / per_step)))
+            per_step, n_kernels, busy, max(0.0, 1.0 - busy / per_step)))
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         log("    {:<30} {:8.3f} ms  {:5.1%}".format(cls, ms, ms / busy))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
@@ -947,8 +1102,7 @@ def phase_aug_train(dd):
     gen = torch.Generator(device=DEVICE).manual_seed(10)
     aug = dict(AUG_CFG, mixup=MIXUP)
     want = [1] + TRAIN_WANT
-    for k in AUG_KERNELS:
-        k.launches = 0
+    reset_launches(AUG_KERNELS)
     for step in range(5):
         before = [k.launches for k in AUG_KERNELS]
         rows = dd.next_indices()
@@ -974,6 +1128,7 @@ def phase_aug_train(dd):
     require(bool(torch.isfinite(losses).all()) and tuple(preds.shape) == (3, 2 * AUG_BATCH),
             "multi-step losses or preds")
     launches = [k.launches for k in AUG_KERNELS]
+    require_vector_route("augmented training run")
     require(all(bool(torch.isfinite(p).all()) for p in trainer.network.parameters()),
             "non-finite parameters")
     log("  8 steps of {} trained images: launches augment/forward/dx/dw/bn_stats {}".format(
@@ -1044,31 +1199,14 @@ def phase_aug_times(trainer, dd, rows):
             n, ms_aug, n / ms_aug * 1e3, [round(t, 3) for t in times["aug"]], ms_plain,
             n / ms_plain * 1e3, [round(t, 3) for t in times["plain"]], ms_aug - ms_plain))
 
-    steps = 3
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            aug_step()
-        torch.cuda.synchronize()
-        span_ms = (time.perf_counter() - t0) * 1e3
-    by_class, by_name, n_kernels = {}, {}, 0
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        n_kernels += evt.count
-        cls = kernel_class(evt.key)
-        by_class[cls] = by_class.get(cls, 0.0) + evt.device_time_total / 1e3 / steps
-        by_name[evt.key] = by_name.get(evt.key, 0.0) + evt.device_time_total / 1e3 / steps
+    per_step, by_class, by_name, n_kernels = device_profile(aug_step)
     busy = sum(by_class.values())
-    per_step = span_ms / steps
     if busy == 0.0:
         log("  profiler: no device time recorded")
         return ms_aug
     log("  profiler, augmented step (host clock with the profiler on: {:.3f} ms a step): {} "
         "kernels a step, busy {:.3f} ms, idle share {:.1%}".format(
-            per_step, n_kernels // steps, busy, max(0.0, 1.0 - busy / per_step)))
+            per_step, n_kernels, busy, max(0.0, 1.0 - busy / per_step)))
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         log("    {:<38} {:8.3f} ms  {:5.1%}".format(cls, ms, ms / busy))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
@@ -1115,30 +1253,56 @@ def gemm_bound_ms(M, K, N, in_dtype, out_dtype, stats):
 
 def gemm_cases():
     """(label, M, K, N, input dtype, matmul_bn_stats' out dtype, how many on
-    the flagship's path at batch 64, 0 for the other shapes)."""
+    the flagship's path at batch 64, 0 for the other shapes, whether the two
+    routes are timed against each other: the A/B's bf16 shapes)."""
     f32, b16 = torch.float32, torch.bfloat16
-    cases = [("pw {}x{}->{}".format(hw, K, N), BATCH * hw, K, N, f32, f32, n)
+    cases = [("pw {}x{}->{}".format(hw, K, N), BATCH * hw, K, N, f32, f32, n, False)
              for hw, K, N, n in FLAGSHIP_PW]
-    cases.append(("dense", *FLAGSHIP_DENSE, f32, f32, 1))
+    cases.append(("dense", *FLAGSHIP_DENSE, f32, f32, 1, False))
     for name, H, cin, cout in bn_fuse_ab.SHAPES:
         for out in (b16, f32):
             cases.append(("{} bf16, out {}".format(name, str(out).split(".")[1]),
-                          128 * H * H, cin, cout, b16, out, 0))
-    cases += [("JAX test", M, K, N, f32, f32, 0) for M, K, N in JAX_TEST_GEMMS]
+                          128 * H * H, cin, cout, b16, out, 0, True))
+    for dtype in (f32, b16):
+        cases += [("JAX test {}".format(str(dtype).split(".")[1]), M, K, N, dtype, dtype, 0,
+                   False) for M, K, N in JAX_TEST_GEMMS]
     return cases
+
+
+def cublas_fp32_out(a, b):
+    """cuBLAS's bf16 GEMM with fp32 output, the same function as ``matmul``
+    on bf16 inputs: ``torch.mm(a, b, out_dtype=torch.float32)``, or None
+    where the installed torch refuses ``out_dtype``."""
+    try:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as exc:
+        log("  torch.mm(out_dtype=torch.float32) refused: {}".format(str(exc)[:120]))
+        return None
+
+
+def route_times(fn, routes=("cuda_core", "tensor_core")):
+    """{route: (event ms, device ms)} of ``fn(route)``, each the mean of two
+    turns taken old, new, new, old."""
+    ev, dev = {r: [] for r in routes}, {r: [] for r in routes}
+    for r in routes + routes[::-1]:
+        ev[r].append(cuda_ms(lambda: fn(r)))
+        dev[r].append(device_ms([lambda: fn(r)]))
+    return {r: (statistics.mean(ev[r]), statistics.mean(dev[r])) for r in routes}
 
 
 def phase_gemm():
     """matmul and matmul_bn_stats against their plain versions, then timed.
-    Returns (matmul's numbers, matmul_bn_stats' numbers) over the flagship's
-    20 pointwise GEMMs and its dense head at batch 64 in fp32."""
+    Returns (matmul's numbers, matmul_bn_stats' numbers): over the
+    flagship's 20 pointwise GEMMs and its dense head at batch 64 in fp32,
+    and under "bf16" the A/B's shapes on both routes."""
     log("== phase 11: matmul and matmul_bn_stats kernels vs plain on the card, and times "
         "(CUDA events, median of 50 after 10 warm-ups)")
     log("card:", card_line())
     log("  limits: y within {0:g} x (|a| @ |b|) + 1e-6 of the plain version per element (plus "
-        "one bf16 step, 2^-7 of |y|, for bf16 y); the statistics as phase 6b with E[y^2]; "
-        "matmul_bn_stats twice bit-equal. cuBLAS is torch.matmul on the same inputs, for "
-        "reference".format(GEMM_RTOL))
+        "one bf16 step, 2^-7 of |y|, for bf16 y); on the tensor-core route twice the ratio "
+        "cuBLAS's bf16 GEMM with fp32 output reaches on the same inputs, where that is larger; "
+        "the statistics as phase 6b with E[y^2]; matmul_bn_stats twice bit-equal. cuBLAS is "
+        "torch.matmul on the same inputs, for reference".format(GEMM_RTOL))
     keys = ("matmul", "stats", "plain", "stats_plain", "cublas")
     totals = dict.fromkeys(keys, 0.0)
     fns = {"matmul": matmul, "stats": matmul_bn_stats, "stats_plain": matmul_bn_stats_plain,
@@ -1146,8 +1310,13 @@ def phase_gemm():
     calls = {k: [] for k in fns}  # the flagship's 21 GEMMs, for the profiler
     bound = {"matmul": {}, "stats": {}}
     err = {"matmul": 0.0, "stats": 0.0}
-    for i, (label, M, K, N, in_dtype, out_dtype, n) in enumerate(gemm_cases()):
+    bf16 = {"matmul": [], "stats": []}
+    for i, (label, M, K, N, in_dtype, out_dtype, n, ab) in enumerate(gemm_cases()):
         a, b = gemm_inputs(M, K, N, in_dtype, seed=800 + i)
+        route = _gemm_route(a, b)
+        require(route == ("tensor_core" if in_dtype == torch.bfloat16 else "cuda_core"),
+                "{} took the {} route".format(label, route))
+        before = (matmul.launches_by_route[route], matmul_bn_stats.launches_by_route[route])
         y = matmul(a, b)
         ref = matmul_plain(a, b)
         scale = GEMM_RTOL * matmul_plain(a.abs(), b.abs()) + 1e-6
@@ -1155,12 +1324,24 @@ def phase_gemm():
         ys2, mean2, var2 = matmul_bn_stats(a, b, out_dtype=out_dtype)
         ps, pmean, pvar = matmul_bn_stats_plain(a, b, out_dtype)
         torch.cuda.synchronize()
+        require((matmul.launches_by_route[route] - before[0],
+                 matmul_bn_stats.launches_by_route[route] - before[1]) == (1, 2),
+                "{}: the {} route's counters did not move".format(label, route))
         require(y.dtype == torch.float32 and y.shape == (M, N) and ys.dtype == out_dtype
                 and ys.shape == (M, N), "GEMM outputs {} {}".format(y.dtype, ys.dtype))
+        factor, cub = 1.0, ""
+        if route == "tensor_core":
+            yc = cublas_fp32_out(a, b)
+            if yc is not None:
+                cub_ratio = ((yc - ref).abs() / scale).max().item()
+                factor = max(1.0, 2.0 * cub_ratio)
+                cub = ", cuBLAS fp32-out {:.3f} of it".format(cub_ratio)
+                del yc
         y_err = (y - ref).abs()
-        y_ratio = (y_err / scale).max().item()
+        y_ratio = (y_err / scale).max().item() / factor
         ys_err = (ys.float() - ps.float()).abs()
-        ys_limit = scale + (2 ** -7 * ps.float().abs() if out_dtype == torch.bfloat16 else 0)
+        ys_limit = factor * scale + (2 ** -7 * ps.float().abs()
+                                     if out_dtype == torch.bfloat16 else 0)
         ys_ratio = (ys_err / ys_limit).max().item()
         dm, dv, s_ratio = stats_errors(mean, var, pmean, pvar, pvar + pmean * pmean)
         same = torch.equal(ys, ys2) and torch.equal(mean, mean2) and torch.equal(var, var2)
@@ -1174,13 +1355,14 @@ def phase_gemm():
         }
         mm_bound, mm_by = gemm_bound_ms(M, K, N, in_dtype, torch.float32, False)
         st_bound, st_by = gemm_bound_ms(M, K, N, in_dtype, out_dtype, True)
-        log("  {} ({}x{}x{}{}): matmul max|err| {:.3e} ({:.3f} of the limit), {:.4f} ms; "
-            "matmul_bn_stats y {:.3f}, mean {:.3e}, var {:.3e} ({:.3f}), repeat bit-equal {}, "
-            "{:.4f} ms; plain {:.4f} / {:.4f} ms; cuBLAS {:.4f} ms; bound {:.4f} ms ({}) / "
-            "{:.4f} ms ({})".format(
-                label, M, K, N, ", x{} layers".format(n) if n else "", y_err.max().item(),
-                y_ratio, t["matmul"], ys_ratio, dm, dv, s_ratio, same, t["stats"], t["plain"],
-                t["stats_plain"], t["cublas"], mm_bound, mm_by, st_bound, st_by))
+        log("  {} ({}x{}x{}{}), {} route: matmul max|err| {:.3e} ({:.3f} of the limit{}), "
+            "{:.4f} ms; matmul_bn_stats y {:.3f}, mean {:.3e}, var {:.3e} ({:.3f}), repeat "
+            "bit-equal {}, {:.4f} ms; plain {:.4f} / {:.4f} ms; cuBLAS {:.4f} ms; bound {:.4f} "
+            "ms ({}) / {:.4f} ms ({})".format(
+                label, M, K, N, ", x{} layers".format(n) if n else "", route,
+                y_err.max().item(), y_ratio, cub, t["matmul"], ys_ratio, dm, dv, s_ratio, same,
+                t["stats"], t["plain"], t["stats_plain"], t["cublas"], mm_bound, mm_by,
+                st_bound, st_by))
         require(y_ratio <= 1.0, "matmul disagrees with its plain version")
         require(ys_ratio <= 1.0 and s_ratio <= 1.0,
                 "matmul_bn_stats disagrees with its plain version")
@@ -1195,9 +1377,37 @@ def phase_gemm():
             if in_dtype == torch.float32:
                 err["matmul"] = max(err["matmul"], y_err.max().item())
                 err["stats"] = max(err["stats"], ys_err.max().item(), dm, dv)
-    device = {k: profiled_ms(c) for k, c in calls.items()}
-    log("  the flagship's 21 GEMMs, device time of their kernels (torch.profiler, host gaps "
-        "left out, mean of 5): matmul {:.4f} ms, matmul_bn_stats {:.4f} ms, its plain version "
+        if ab:
+            shape = label.split(" ")[0]
+            rows = []
+            if out_dtype == torch.bfloat16:  # matmul's y is fp32 whatever the row
+                has_out = cublas_fp32_out(a, b) is not None
+                lib = (cuda_ms(lambda: torch.mm(a, b, out_dtype=torch.float32)),
+                       device_ms([lambda: torch.mm(a, b, out_dtype=torch.float32)])) \
+                    if has_out else (None, None)
+                rows.append(("matmul", "y float32", mm_bound, mm_by, lib,
+                             route_times(lambda r: launch_matmul(a, b, r))))
+            lib = (t["cublas"], device_ms([lambda: torch.matmul(a, b)])) \
+                if out_dtype == torch.bfloat16 else (None, None)
+            rows.append(("stats", "y " + str(out_dtype).split(".")[1], st_bound, st_by, lib,
+                         route_times(lambda r: launch_matmul_bn_stats(a, b, out_dtype, r))))
+            for k, what, b_ms, b_by, (lib_ms, lib_dev), rt in rows:
+                (tc_ms, tc_dev), (cc_ms, cc_dev) = rt["tensor_core"], rt["cuda_core"]
+                bf16[k].append(dict(shape=shape, M=M, K=K, N=N, y=what.split(" ")[1],
+                                    ms=tc_ms, device_ms=tc_dev, old_route_ms=cc_ms,
+                                    old_route_device_ms=cc_dev, bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=lib_ms, library_device_ms=lib_dev))
+                log("    {} {}, {}: tensor cores {:.4f} ms (device {:.4f}, {:.1%} of the bound), "
+                    "CUDA cores {:.4f} ms (device {:.4f}), in turns; bound {:.4f} ms ({}); {} "
+                    "{} ms (device {})".format(
+                        "matmul" if k == "matmul" else "matmul_bn_stats", shape, what, tc_ms,
+                        tc_dev, b_ms / tc_dev, cc_ms, cc_dev, b_ms, b_by,
+                        "torch.mm(out_dtype=float32)" if k == "matmul" else "torch.matmul bf16",
+                        "n/a" if lib_ms is None else "{:.4f}".format(lib_ms),
+                        "n/a" if lib_dev is None else "{:.4f}".format(lib_dev)))
+    device = {k: device_ms(c) for k, c in calls.items()}
+    log("  the flagship's 21 GEMMs, device time (calls queued behind a spin kernel, host "
+        "gaps left out, mean of 5): matmul {:.4f} ms, matmul_bn_stats {:.4f} ms, its plain version "
         "{:.4f} ms, cuBLAS {:.4f} ms".format(device["matmul"], device["stats"],
                                             device["stats_plain"], device["cublas"]))
     out = []
@@ -1211,22 +1421,24 @@ def phase_gemm():
                     totals[plain_key], totals["cublas"], total_bound, by,
                     total_bound / totals[k]))
         out.append(dict(max_abs_err=err[k], ms=totals[k], plain_ms=totals[plain_key],
-                        bound_ms=total_bound, bound_by=by, library_ms=library))
+                        bound_ms=total_bound, bound_by=by, library_ms=library,
+                        device_ms=device[k], bf16=bf16[k]))
     return out
 
 
 def phase_bn_fuse_ab():
     """bn_fuse_ab.run on the card; returns the launches of matmul,
-    matmul_bn_stats and batch_norm_stats in that run."""
+    matmul_bn_stats and batch_norm_stats in that run, and the two GEMMs'
+    launches by route."""
     log("== phase 12: the BN-fusion A/B (dorknet_tpu_torch.utils.bn_fuse_ab), batch 128, "
         "bf16; device ms the best of 2 rounds of the median of 5")
     log("card:", card_line())
     ab_kernels = (matmul, matmul_bn_stats, batch_norm_stats)
-    for k in ab_kernels:
-        k.launches = 0
+    reset_launches(ab_kernels)
     results = bn_fuse_ab.run(rounds=2, runs=5)
     torch.cuda.synchronize()
     launches = [k.launches for k in ab_kernels]
+    routes = [dict(k.launches_by_route) for k in (matmul, matmul_bn_stats)]
     for name, *_ in bn_fuse_ab.SHAPES:
         ms = {v: results["{}_{}_device_ms".format(name, v)]
               for v in ("torch", "cuda_fused", "cuda_split", "cuda_matmul")}
@@ -1238,9 +1450,24 @@ def phase_bn_fuse_ab():
                 results[name + "_cuda_split_stats_rel_err"], bn_fuse_ab.GATE,
                 results[name + "_stats_ok"]))
         require(results[name + "_stats_ok"], "the A/B's statistics gate failed at " + name)
-    log("  launches matmul/matmul_bn_stats/batch_norm_stats {}".format(launches))
+    log("  launches matmul/matmul_bn_stats/batch_norm_stats {}; by route: matmul {}, "
+        "matmul_bn_stats {}".format(launches, *routes))
+    # the A/B's times are CUDA events around one call, which the host bounds at
+    # the deep shape; the kernels' own device time of each variant on the A/B's
+    # inputs (seeded as bn_fuse_ab.run seeds them)
+    for name, H, cin, cout in bn_fuse_ab.SHAPES:
+        g = torch.Generator(device=DEVICE).manual_seed(0)
+        x = torch.randn((128 * H * H, cin), generator=g, device=DEVICE).to(torch.bfloat16)
+        w = torch.randn((cin, cout), generator=g, device=DEVICE).to(torch.bfloat16) * 0.05
+        variants = dict(bn_fuse_ab.VARIANTS, cuda_matmul=matmul)
+        dev = {v: device_ms([lambda fn=fn: fn(x, w)]) for v, fn in variants.items()}
+        log("  {} device time (queued behind a spin kernel, mean of 5): {}; fastest {}".format(
+            name, {v: round(ms, 4) for v, ms in dev.items()},
+            min(bn_fuse_ab.VARIANTS, key=dev.get)))
     require(all(launches), "the A/B missed a kernel")
-    return launches
+    require(routes[0]["tensor_core"] == launches[0] and routes[1]["tensor_core"] == launches[1],
+            "an A/B GEMM missed the tensor-core route")
+    return launches, routes
 
 
 def phase_accumulate():
@@ -1257,12 +1484,12 @@ def phase_accumulate():
     wants = (fresh, [n * ACC_K for n in TRAIN_WANT])
     launches = []
     for call, want in enumerate(wants):
-        for k in TRAIN_KERNELS:
-            k.launches = 0
+        reset_launches(TRAIN_KERNELS)
         sl = slice(call * ACC_K, (call + 1) * ACC_K)
         loss = trainer.accumulate_step(X[sl], y[sl])
         torch.cuda.synchronize()
         got = [k.launches for k in TRAIN_KERNELS]
+        require_vector_route("accumulate call {}".format(call))
         launches.append(got)
         log("  call {} ({} batch norms): loss {:.6f}, launches forward/dx/dw/bn_stats {} "
             "(want {})".format(call, "fresh" if call == 0 else "set", float(loss), got, want))
@@ -1300,6 +1527,7 @@ def main():
     bn_err = phase_bn_stats_vs_plain()
     bn = phase_bn_stats_times()
     trainer, launches = phase_train()
+    train_routes = dict(depthwise3x3.launches_by_route)
     phase_train_twin()
     bwd = phase_bwd_times()
     phase_train_times(trainer)
@@ -1307,7 +1535,7 @@ def main():
     aug = phase_augment_vs_plain()
     aug_launches = phase_aug_slice()
     mm, mm_stats = phase_gemm()
-    ab_launches = phase_bn_fuse_ab()
+    ab_launches, ab_routes = phase_bn_fuse_ab()
     acc_launches = phase_accumulate()
 
     bound_ms, bound_by = flagship_bound_ms()
@@ -1323,7 +1551,12 @@ def main():
              replaces="dorknet_tpu/ops/pallas/depthwise.py:192",
              launches=launches[0], max_abs_err=max_err, ms=fwd["kernel"],
              plain_ms=fwd["plain"], bound_ms=bound_ms, bound_by=bound_by,
-             library_ms=fwd["cudnn"]),
+             library_ms=fwd["cudnn"], launches_by_route=train_routes,
+             device_ms=fwd["device_vector"], old_route_ms=fwd["scalar"],
+             old_route_device_ms=fwd["device_scalar"], library_device_ms=fwd["device_cudnn"],
+             bf16_device_ms=fwd["device_vector_bf16"],
+             bf16_old_route_device_ms=fwd["device_scalar_bf16"],
+             bf16_library_device_ms=fwd["device_cudnn_bf16"]),
         dict(name="depthwise3x3_dx", source="dorknet_tpu_torch/csrc/depthwise3x3_bwd.cu",
              launches=launches[1], max_abs_err=bwd_err["dx"], ms=bwd["dx"],
              plain_ms=bwd["dx_plain"], bound_ms=bound_ms, bound_by=bound_by,
@@ -1340,12 +1573,16 @@ def main():
              replaces="dorknet_tpu/ops/pallas/bn_stats.py:34", launches=launches[3],
              max_abs_err=bn_err, **bn),
         dict(name="matmul", route="cuda", source="dorknet_tpu_torch/csrc/matmul.cu",
-             replaces="dorknet_tpu/ops/pallas/matmul.py:26", launches=ab_launches[0], **mm),
+             tensor_core_source="dorknet_tpu_torch/csrc/matmul_sm90.cu",
+             replaces="dorknet_tpu/ops/pallas/matmul.py:26", launches=ab_launches[0],
+             launches_by_route=ab_routes[0], **mm),
         dict(name="matmul_bn_stats", route="cuda", source="dorknet_tpu_torch/csrc/matmul.cu",
+             tensor_core_source="dorknet_tpu_torch/csrc/matmul_sm90.cu",
              replaces="dorknet_tpu/ops/pallas/matmul.py:78", launches=ab_launches[1],
-             **mm_stats),
+             launches_by_route=ab_routes[1], **mm_stats),
     ]}))
     log("card:", card_line())
+    log("chip_smoke: {:.1f} s in all".format(time.perf_counter() - _START))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -13,15 +13,20 @@
 //     with s, ss the column sum and sum of squares of the fp32 product,
 //     taken before y is rounded to its output type.
 //
-// a and b are both fp32 or both bf16; a bf16 element is widened to fp32 as it
-// is staged in shared memory, and every product is an fp32 FMA on the CUDA
-// cores (TF32 and the tensor cores are not used: the port keeps fp32 exact).
+// Two routes, chosen by the caller (ops/cuda/matmul.py:_gemm_route) and
+// passed as `route`:
+// - 0, the CUDA cores (this file): a and b both fp32 or both bf16; a bf16
+//   element is widened to fp32 as it is staged in shared memory, and every
+//   product is an fp32 FMA (TF32 is not used: the port keeps fp32 exact);
+// - 1, the tensor cores (matmul_sm90.cu): bf16 a and b with K and N
+//   multiples of 8 and 16-byte aligned pointers, TMA and wgmma. That file
+//   refuses any other input with cudaErrorInvalidValue.
 //
-// What bounds it on an H100: for the flagship's pointwise layers in fp32,
-// operations (2*M*N*K flops at the 67 TFLOP/s of the fp32 cores against
+// What bounds this route on an H100: for the flagship's pointwise layers in
+// fp32, operations (2*M*N*K flops at the 67 TFLOP/s of the fp32 cores against
 // (M*K + K*N + M*N) * 4 bytes at 3.35 TB/s: K, N >= 64 puts them past the
-// ridge); for bf16 inputs the bound is the tensor cores' 989 TFLOP/s, or the
-// bytes, which this kernel, on the fp32 cores, cannot reach.
+// ridge). bf16 inputs that the tensor-core route cannot take (K or N not a
+// multiple of 8, a misaligned view) stay here, capped at the same 67 TFLOP/s.
 //
 // What the design does about it: a classic register-blocked tiling. A block
 // of 256 threads owns a 128 x 128 tile of y; it loops over K in chunks of 8,
@@ -38,8 +43,9 @@
 // pass (stats_finish_kernel, common.cuh) sums them in a fixed order. No
 // atomics: two runs give bit-equal results.
 //
-// Later work, not done here: bf16 through mma.sync or wgmma with TMA, and
-// double-buffered staging.
+// Later work, not done here: double-buffered staging and wider global loads
+// for this route (fp32 can reach the tensor cores only through TF32, which
+// changes the function).
 //
 // C entry point: dorknet_matmul. It launches on the caller's stream, does not
 // synchronise, allocates nothing, and returns cudaGetLastError() after the
@@ -187,16 +193,23 @@ cudaError_t mm_dispatch_out(const void* a, const void* b, void* y, float* partia
 
 }  // namespace
 
+// matmul_sm90.cu
+cudaError_t dorknet_matmul_tensor_cores(const void* a, const void* b, void* y, float* partials,
+                                        float* mean, float* var, int M, int K, int N,
+                                        int in_dtype, int out_dtype, bool stats,
+                                        cudaStream_t stream);
+
 extern "C" {
 
 // in_dtype (a and b) and out_dtype (y): 0 = float32, 1 = bfloat16. a is
 // contiguous (M,K), b (K,N), y (M,N). With stats != 0, partials is float32
 // (ceil(M/128), 2, N) scratch and mean, var are float32 (N,); M must then be
-// positive. M, N >= 1, K >= 0.
+// positive. M, N >= 1, K >= 0. route: 0 = CUDA cores, 1 = tensor cores (see
+// the top of this file for what route 1 takes).
 int dorknet_matmul(const void* a, const void* b, void* y, void* partials, void* mean,
                    void* var, int M, int K, int N, int in_dtype, int out_dtype, int stats,
-                   void* stream, int device) {
-    if (M < 1 || N < 1 || K < 0 || (N + MM_BN - 1) / MM_BN > 65535)
+                   int route, void* stream, int device) {
+    if (M < 1 || N < 1 || K < 0 || (N + MM_BN - 1) / MM_BN > 65535 || (route != 0 && route != 1))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
@@ -204,6 +217,9 @@ int dorknet_matmul(const void* a, const void* b, void* y, void* partials, void* 
     float* pp = static_cast<float*>(partials);
     float* mp = static_cast<float*>(mean);
     float* vp = static_cast<float*>(var);
+    if (route == 1)
+        return (int)dorknet_matmul_tensor_cores(a, b, y, pp, mp, vp, M, K, N, in_dtype,
+                                                out_dtype, stats != 0, s);
     switch (in_dtype) {
         case 0: return (int)mm_dispatch_out<float>(a, b, y, pp, mp, vp, M, K, N, out_dtype,
                                                    stats != 0, s);

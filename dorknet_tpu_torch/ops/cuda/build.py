@@ -1,10 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
 At first use, every ``.cu`` file under ``dorknet_tpu_torch/csrc/`` is
-compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` process per
-source, all started together, and the objects are linked into one shared
-library with a plain C interface, which is loaded with ``ctypes``. No PyTorch
-headers are involved, so the build takes seconds. The library lands in
+compiled with ``nvcc`` for Hopper (``sm_90a``: the tensor-core GEMM's
+``wgmma`` exists only for that target), one ``nvcc`` process per source, all
+started together, and the objects are linked into one shared library with a
+plain C interface, which is loaded with ``ctypes``. No PyTorch headers are
+involved, so the build takes seconds. The library needs no ``-lcuda``: the
+one driver function it uses (``cuTensorMapEncodeTiled``) is found through
+the CUDA runtime. The library lands in
 ``build/dorknet_tpu_torch_kernels/`` at the root of the checkout, and its file
 name carries a hash of the sources and flags, so an edited source rebuilds.
 
@@ -60,7 +63,7 @@ def _find_nvcc():
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.dorknet_depthwise3x3_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
-                                             ci, vp, ci]
+                                             ci, ci, ci, vp, ci]
     lib.dorknet_depthwise3x3_fwd.restype = ci
     lib.dorknet_depthwise3x3_dx.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
                                             ci, vp, ci]
@@ -73,7 +76,7 @@ def _bind(lib):
     lib.dorknet_augment_planes.restype = ci
     lib.dorknet_bn_stats.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, vp, ci]
     lib.dorknet_bn_stats.restype = ci
-    lib.dorknet_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, ci]
+    lib.dorknet_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, ci]
     lib.dorknet_matmul.restype = ci
     lib.dorknet_max_block_smem.argtypes = [ci]
     lib.dorknet_max_block_smem.restype = ci

@@ -16,6 +16,12 @@ it computes the same function with its plain PyTorch version (``*_plain``).
 Nothing sends a CUDA tensor to a plain version. ``Depthwise3x3Fn`` joins the
 three for autograd, and ``depthwise3x3`` goes through it whenever a gradient
 is needed. Each wrapper counts the launches of its kernel in ``.launches``.
+
+The forward has two routes, chosen by shape before the launch
+(``_dw_route``): ``"vector"``, 16-byte vectors of channels (4 fp32 or 8
+bf16) in strips of ``dw_strip`` outputs, when C is a multiple of that and x
+is 16-byte aligned; ``"scalar"``, one thread per element, otherwise. Both
+give bit-equal results; ``depthwise3x3.launches_by_route`` counts each.
 """
 
 import torch
@@ -27,6 +33,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # dw pass 1 aims at this many blocks per SM (see csrc/depthwise3x3_bwd.cu)
 _DW_BLOCKS_PER_SM = 8
+FWD_ROUTES = ("scalar", "vector")  # their codes at the C entry point: 0, 1
+_VEC_BYTES = 16
+# the vector route's strip widths, widest first, and the threads per SM a
+# layer should still give the card. Wide strips win while each SM keeps a
+# few warps, even at the 7x7x512 layer whose strip of 8 leaves about 220
+# threads an SM in bf16 (chip_smoke.py phase 5 times every width)
+_STRIPS = (8, 4, 2, 1)
+_THREADS_PER_SM = 128
 
 
 def _out_hw(H, W, stride):
@@ -146,24 +160,65 @@ def depthwise3x3_dw_plain(x, g, stride):
 # ---------------------------------------------------------------------- #
 # Kernel wrappers
 # ---------------------------------------------------------------------- #
-def _forward(x, w, stride):
-    """The forward on x's device: the plain version for a CPU tensor, the
-    kernel for a CUDA one."""
-    if x.device.type == "cpu":
-        return depthwise3x3_plain(x, w, stride)
+def _vec_channels(dtype):
+    """Channels in one 16-byte vector: 4 fp32 or 8 bf16."""
+    return _VEC_BYTES // torch.empty((), dtype=dtype).element_size()
+
+
+def _dw_route(x):
+    """The forward's route for x (N,H,W,C): ``"vector"`` when C is a
+    multiple of a 16-byte vector of channels and x is 16-byte aligned (the
+    wrapper allocates y aligned), else ``"scalar"``."""
+    if x.shape[3] % _vec_channels(x.dtype) == 0 and x.data_ptr() % _VEC_BYTES == 0:
+        return "vector"
+    return "scalar"
+
+
+def dw_strip(N, Ho, Wo, vectors, sms):
+    """The vector route's strip: the widest of 8, 4, 2 outputs along W
+    that still gives at least ``_THREADS_PER_SM`` threads (one per output
+    strip and channel vector) per SM, else 1. Each thread keeps the taps
+    of its strip in registers, so wider strips read each input once; the
+    floor keeps small layers (small batches) spread over the SMs."""
+    for tw in _STRIPS[:-1]:
+        if N * Ho * -(-Wo // tw) * vectors >= _THREADS_PER_SM * sms:
+            return tw
+    return _STRIPS[-1]
+
+
+def launch_forward(x, w, stride, route, tw=None):
+    """The forward kernel of ``route`` on CUDA tensors (x and w already
+    checked); ``tw`` overrides the vector route's strip. ``depthwise3x3``
+    takes ``_dw_route(x)``; this launcher also serves to hold one route
+    against the other on the same inputs. The C side refuses a route or a
+    strip the input cannot take."""
     _require_cuda(x)
     N, H, W, C = x.shape
     Ho, Wo = _out_hw(H, W, stride)
     y = torch.empty((N, Ho, Wo, C), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    if tw is None:
+        tw = 1
+        if route == "vector":
+            sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+            tw = dw_strip(N, Ho, Wo, C // _vec_channels(x.dtype), sms)
     kernels = load_library()
     err = kernels.lib.dorknet_depthwise3x3_fwd(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), N, H, W, C, stride,
-        _DTYPE_CODE[x.dtype], _stream(x), x.device.index)
-    check(kernels.lib, err, "depthwise3x3 launch")
+        _DTYPE_CODE[x.dtype], FWD_ROUTES.index(route), tw, _stream(x), x.device.index)
+    check(kernels.lib, err, "depthwise3x3 launch ({} route)".format(route))
     depthwise3x3.launches += 1
+    depthwise3x3.launches_by_route[route] += 1
     return y
+
+
+def _forward(x, w, stride):
+    """The forward on x's device: the plain version for a CPU tensor, the
+    kernel of its route for a CUDA one."""
+    if x.device.type == "cpu":
+        return depthwise3x3_plain(x, w, stride)
+    return launch_forward(x, w, stride, _dw_route(x))
 
 
 def depthwise3x3_dx(g, w, stride, H, W):
@@ -270,5 +325,6 @@ def depthwise3x3(x, w, stride=1):
 
 
 depthwise3x3.launches = 0
+depthwise3x3.launches_by_route = dict.fromkeys(FWD_ROUTES, 0)
 depthwise3x3_dx.launches = 0
 depthwise3x3_dw.launches = 0

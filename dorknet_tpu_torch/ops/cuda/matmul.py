@@ -1,8 +1,7 @@
 """GEMM, and GEMM with the batch-norm statistics of its output columns.
 
-One hand-written CUDA kernel, ``csrc/matmul.cu``, with its statistics
-epilogue on or off, replaces the Pallas kernels of
-``dorknet_tpu/ops/pallas/matmul.py``:
+Hand-written CUDA kernels with a statistics epilogue on or off replace the
+Pallas kernels of ``dorknet_tpu/ops/pallas/matmul.py``:
 
 - ``matmul(a, b)``: (M,K) @ (K,N) with fp32 accumulation and an fp32 result;
 - ``matmul_bn_stats(a, b, out_dtype=None)``: the same product, returned in
@@ -16,9 +15,18 @@ layers compute their products with ``torch.matmul``, as the JAX package's do
 with ``jnp.dot`` outside any Pallas kernel; these two serve the BN-fusion A/B
 (``utils/bn_fuse_ab.py``).
 
-On CUDA tensors each wrapper launches the kernel, or raises; on CPU tensors
-it computes the same function with its plain PyTorch version (``*_plain``).
-Launches are counted in ``.launches``.
+Two routes, chosen by shape before the launch (``_gemm_route``):
+
+- ``"tensor_core"`` (``csrc/matmul_sm90.cu``): bf16 a and b, K and N
+  multiples of 8 (TMA's 16-byte row strides), K > 0, both base pointers
+  16-byte aligned; TMA loads and ``wgmma`` on Hopper's tensor cores;
+- ``"cuda_core"`` (``csrc/matmul.cu``): everything else, fp32 always (its
+  only way to the tensor cores is TF32, which the port keeps off).
+
+On CUDA tensors each wrapper launches the kernel of its route, or raises; on
+CPU tensors it computes the same function with its plain PyTorch version
+(``*_plain``). Launches are counted in ``.launches``, and per route in
+``.launches_by_route``.
 """
 
 import torch
@@ -26,7 +34,8 @@ import torch
 from dorknet_tpu_torch.ops.cuda.build import check, load_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-TILE_M = 128  # rows of y a block owns (csrc/matmul.cu MM_BM)
+TILE_M = 128  # rows of y a block owns (csrc/matmul.cu MM_BM, matmul_sm90.cu TC_BM)
+ROUTES = ("cuda_core", "tensor_core")  # their codes at the C entry point: 0, 1
 
 
 def _validate(a, b, out_dtype, who):
@@ -64,9 +73,20 @@ def matmul_bn_stats_plain(a, b, out_dtype=None):
     return y.to(out_dtype), mean, var
 
 
-def _launch(a, b, out_dtype, stats):
-    """The kernel on CUDA tensors: returns y, or (y, mean, var) with
-    stats."""
+def _gemm_route(a, b):
+    """The route a (M,K) @ (K,N) takes: ``"tensor_core"`` for bf16 inputs
+    that TMA can read (K > 0, K and N multiples of 8, 16-byte aligned
+    pointers), ``"cuda_core"`` for everything else."""
+    K, N = b.shape
+    if (a.dtype == b.dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def _launch(a, b, out_dtype, stats, route):
+    """The kernel of ``route`` on CUDA tensors: returns y, or (y, mean,
+    var) with stats. The C side refuses a route the inputs cannot take."""
     if a.device.type != "cuda":
         raise ValueError("matmul: unsupported device {}".format(a.device))
     M, K = a.shape
@@ -85,9 +105,30 @@ def _launch(a, b, out_dtype, stats):
             None if mean is None else mean.data_ptr(),
             None if var is None else var.data_ptr(),
             M, K, N, _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype], int(stats),
-            torch.cuda.current_stream(a.device).cuda_stream, a.device.index)
-        check(kernels.lib, err, "matmul launch")
+            ROUTES.index(route), torch.cuda.current_stream(a.device).cuda_stream,
+            a.device.index)
+        check(kernels.lib, err, "matmul launch ({} route)".format(route))
     return (y, mean, var) if stats else y
+
+
+def launch_matmul(a, b, route):
+    """``matmul`` on CUDA tensors (already checked) through the given route;
+    ``matmul`` itself takes ``_gemm_route(a, b)``. For holding one route
+    against the other on the same inputs."""
+    y = _launch(a, b, torch.float32, False, route)
+    if y.numel():
+        matmul.launches += 1
+        matmul.launches_by_route[route] += 1
+    return y
+
+
+def launch_matmul_bn_stats(a, b, out_dtype, route):
+    """``matmul_bn_stats`` on CUDA tensors (already checked) through the
+    given route."""
+    out = _launch(a, b, out_dtype, True, route)
+    matmul_bn_stats.launches += 1
+    matmul_bn_stats.launches_by_route[route] += 1
+    return out
 
 
 def matmul(a, b):
@@ -96,10 +137,7 @@ def matmul(a, b):
     _validate(a, b, torch.float32, "matmul")
     if a.device.type == "cpu":
         return matmul_plain(a, b)
-    y = _launch(a, b, torch.float32, stats=False)
-    if y.numel():
-        matmul.launches += 1
-    return y
+    return launch_matmul(a, b, _gemm_route(a, b))
 
 
 def matmul_bn_stats(a, b, out_dtype=None):
@@ -115,10 +153,10 @@ def matmul_bn_stats(a, b, out_dtype=None):
                          "{}".format(tuple(a.shape), tuple(b.shape)))
     if a.device.type == "cpu":
         return matmul_bn_stats_plain(a, b, out_dtype)
-    out = _launch(a, b, out_dtype, stats=True)
-    matmul_bn_stats.launches += 1
-    return out
+    return launch_matmul_bn_stats(a, b, out_dtype, _gemm_route(a, b))
 
 
 matmul.launches = 0
 matmul_bn_stats.launches = 0
+matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
+matmul_bn_stats.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -18,10 +18,10 @@ from dorknet_tpu_torch.ops.cuda.augment import augment_planes_fused  # noqa: E40
 from dorknet_tpu_torch.ops.cuda.bn_stats import (  # noqa: E402
     batch_norm_stats, batch_norm_stats_plain)
 from dorknet_tpu_torch.ops.cuda.depthwise import (  # noqa: E402
-    depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain, depthwise3x3_dx,
-    depthwise3x3_dx_plain, depthwise3x3_plain)
+    _dw_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain, depthwise3x3_dx,
+    depthwise3x3_dx_plain, depthwise3x3_plain, launch_forward)
 from dorknet_tpu_torch.ops.cuda.matmul import (  # noqa: E402
-    matmul, matmul_bn_stats, matmul_bn_stats_plain, matmul_plain)
+    _gemm_route, launch_matmul, matmul, matmul_bn_stats, matmul_bn_stats_plain, matmul_plain)
 from dorknet_tpu_torch.optimisers import SGDMomentum  # noqa: E402
 from dorknet_tpu_torch.utils.seeded import seed_serving_weights  # noqa: E402
 
@@ -364,3 +364,156 @@ def test_accumulate_step_on_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert [k.launches - c for k, c in zip(kernels, counts)] == [48, 32, 32, 102]
     assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))
+
+
+# the tensor-core GEMM route: small A/B-like shapes (M a few tiles, K = 64
+# and 1024, N = 256), the JAX package's shapes, ragged M (300, 8, 129) and K
+# below or not a multiple of 64 (16, 32, 72)
+TC_GEMM_CASES = [(1024, 64, 256), (384, 1024, 256), (64, 32, 48), (300, 512, 120),
+                 (8, 16, 128), (300, 72, 64), (129, 16, 136), (8, 32, 8)]
+
+
+def _tc_limit(a, b):
+    """The tensor-core route's limit per element of y: GEMM_RTOL (2e-5) of
+    |a| @ |b|, or twice the ratio cuBLAS's bf16 GEMM with fp32 output
+    reaches on the same inputs, whichever is larger (the tensor cores add
+    their products in their own order and rounding)."""
+    scale = matmul_plain(a.abs(), b.abs())
+    ref = matmul_plain(a, b)
+    cublas = torch.mm(a, b, out_dtype=torch.float32)
+    ratio = float(((cublas - ref).abs() / (2e-5 * scale + 1e-6)).max())
+    return max(1.0, 2.0 * ratio) * (2e-5 * scale + 1e-6)
+
+
+@pytest.mark.parametrize("M,K,N", TC_GEMM_CASES)
+def test_tensor_core_matmul_matches_plain(cuda, M, K, N):
+    """bf16 inputs with K, N multiples of 8 take the tensor-core route; fp32
+    y within the route's limit of the plain version; two runs bit-equal."""
+    a, b = _gemm_inputs(cuda, M, K, N, torch.bfloat16)
+    assert _gemm_route(a, b) == "tensor_core"
+    before = dict(matmul.launches_by_route)
+    y = matmul(a, b)
+    y2 = matmul(a, b)
+    ref = matmul_plain(a, b)
+    limit = _tc_limit(a, b)
+    torch.cuda.synchronize()
+    assert matmul.launches_by_route["tensor_core"] == before["tensor_core"] + 2
+    assert matmul.launches_by_route["cuda_core"] == before["cuda_core"]
+    assert y.dtype == torch.float32 and y.shape == (M, N)
+    assert torch.equal(y, y2)
+    assert bool(((y - ref).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", TC_GEMM_CASES)
+def test_tensor_core_matmul_bn_stats_matches_plain(cuda, M, K, N, out_dtype):
+    """The statistics epilogue on the tensor-core route: y within the route's
+    limit (plus one bf16 step for bf16 y), the statistics within their
+    limits of the plain version's; two runs bit-equal."""
+    a, b = _gemm_inputs(cuda, M, K, N, torch.bfloat16)
+    before = matmul_bn_stats.launches_by_route["tensor_core"]
+    y, mean, var = matmul_bn_stats(a, b, out_dtype=out_dtype)
+    y2, mean2, var2 = matmul_bn_stats(a, b, out_dtype=out_dtype)
+    ref, ref_mean, ref_var = matmul_bn_stats_plain(a, b, out_dtype)
+    limit = _tc_limit(a, b)
+    if out_dtype == torch.bfloat16:
+        limit = limit + 2 ** -7 * ref.float().abs()
+    torch.cuda.synchronize()
+    assert matmul_bn_stats.launches_by_route["tensor_core"] == before + 2
+    assert y.dtype == out_dtype and y.shape == (M, N)
+    assert torch.equal(y, y2) and torch.equal(mean, mean2) and torch.equal(var, var2)
+    assert bool(((y.float() - ref.float()).abs() <= limit).all())
+    assert _within_stats_limit(mean, var, ref_mean, ref_var)
+
+
+def test_tensor_core_route_agrees_with_the_cuda_core_route(cuda):
+    """The two routes on the same bf16 inputs, one launch each."""
+    a, b = _gemm_inputs(cuda, 300, 512, 120, torch.bfloat16)
+    before = dict(matmul.launches_by_route)
+    y_tc = launch_matmul(a, b, "tensor_core")
+    y_cc = launch_matmul(a, b, "cuda_core")
+    limit = _tc_limit(a, b)
+    torch.cuda.synchronize()
+    assert {k: matmul.launches_by_route[k] - before[k] for k in before} == \
+        {"tensor_core": 1, "cuda_core": 1}
+    assert bool(((y_tc - y_cc).abs() <= 2 * limit).all())
+
+
+def test_bf16_gemm_with_ragged_n_stays_on_the_cuda_cores(cuda):
+    """N = 50 (not a multiple of 8): TMA cannot read b's rows, so the
+    CUDA-core kernel runs, and agrees with the plain version."""
+    a, b = _gemm_inputs(cuda, 64, 32, 50, torch.bfloat16)
+    before = dict(matmul.launches_by_route)
+    y = matmul(a, b)
+    ref = matmul_plain(a, b)
+    scale = matmul_plain(a.abs(), b.abs())
+    torch.cuda.synchronize()
+    assert matmul.launches_by_route["cuda_core"] == before["cuda_core"] + 1
+    assert matmul.launches_by_route["tensor_core"] == before["tensor_core"]
+    assert bool(((y - ref).abs() <= 2e-5 * scale + 1e-6).all())
+
+
+def test_gemm_entry_point_refuses_what_the_tensor_cores_cannot_take(cuda):
+    """Asked for the tensor-core route, the C side refuses fp32 inputs, K or
+    N not a multiple of 8 and a misaligned view, and nothing launches."""
+    before = dict(matmul.launches_by_route)
+    bad = [
+        _gemm_inputs(cuda, 16, 16, 16, torch.float32),
+        _gemm_inputs(cuda, 16, 12, 16, torch.bfloat16),
+        _gemm_inputs(cuda, 16, 16, 12, torch.bfloat16),
+    ]
+    a, b = bad[0]
+    a_off = torch.zeros(16 * 16 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(16, 16)
+    bad.append((a_off, b.bfloat16()))  # a contiguous view 2 bytes off
+    for a, b in bad:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            launch_matmul(a, b, "tensor_core")
+    assert matmul.launches_by_route == before
+
+
+# the vector depthwise route: C in {8, 24, 64}, W (and Wo) not a multiple of
+# the strip width
+DW_VEC_CASES = [(2, 9, 9, 24, 1), (2, 9, 9, 24, 2), (3, 13, 11, 64, 1), (3, 13, 11, 64, 2),
+                (2, 10, 7, 8, 2), (4, 16, 19, 8, 1), (1, 1, 1, 8, 1), (2, 2, 3, 8, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,W,C,stride", DW_VEC_CASES)
+def test_vector_depthwise_matches_scalar_and_plain(cuda, N, H, W, C, stride, dtype):
+    """Every strip width of the vector route is bit-equal to the scalar
+    route (same fmaf per tap, same order), and within the forward's limits
+    of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(N * 1000 + H * 10 + C + stride)
+    x = torch.randn(N, H, W, C, generator=g, device=cuda).to(dtype)
+    w = torch.randn(C, 3, 3, generator=g, device=cuda).to(dtype).float()
+    assert _dw_route(x) == "vector"
+    before = dict(depthwise3x3.launches_by_route)
+    y = depthwise3x3(x, w, stride)
+    ys = launch_forward(x, w, stride, "scalar")
+    strips = [launch_forward(x, w, stride, "vector", tw) for tw in (1, 2, 4, 8)]
+    ref = depthwise3x3_plain(x, w, stride)
+    torch.cuda.synchronize()
+    assert depthwise3x3.launches_by_route["vector"] == before["vector"] + 5
+    assert depthwise3x3.launches_by_route["scalar"] == before["scalar"] + 1
+    assert all(torch.equal(v, ys) for v in [y] + strips)
+    tol = 1e-5 * float(ref.float().abs().max()) + 1e-6 if dtype == torch.float32 else 0.0
+    assert float((y.float() - ref.float()).abs().max()) <= tol
+
+
+def test_depthwise_entry_point_refuses_what_the_vector_route_cannot_take(cuda):
+    """C = 6, a misaligned view and a strip of 3 are refused by the C side
+    on the vector route; the scalar route takes C = 6."""
+    w = torch.randn(6, 3, 3, device=cuda)
+    x = torch.randn(1, 4, 4, 6, device=cuda)
+    before = dict(depthwise3x3.launches_by_route)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        launch_forward(x, w, 1, "vector")
+    x8 = torch.randn(1 * 4 * 4 * 8 + 1, device=cuda)[1:].view(1, 4, 4, 8)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        launch_forward(x8, torch.randn(8, 3, 3, device=cuda), 1, "vector")
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        launch_forward(torch.randn(1, 4, 4, 8, device=cuda), torch.randn(8, 3, 3, device=cuda),
+                       1, "vector", tw=3)
+    assert depthwise3x3.launches_by_route == before
+    assert _dw_route(x) == "scalar"
+    assert torch.equal(depthwise3x3(x, w, 1), launch_forward(x, w, 1, "scalar"))

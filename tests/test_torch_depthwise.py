@@ -1,6 +1,7 @@
 """The port's depthwise 3x3 (on CPU: its plain version) against the JAX
 package's Pallas kernel in interpret mode and against its XLA path, plus the
-dispatch by shape and the wrapper's argument checks."""
+dispatch by shape, the kernel's route by shape and the wrapper's argument
+checks."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -8,11 +9,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
 import dorknet_tpu.ops.pallas.depthwise as pdw  # noqa: E402
 from dorknet_tpu.ops.conv import depthwise_conv2d as jax_depthwise_conv2d  # noqa: E402
 
 import dorknet_tpu_torch.ops.conv as tconv  # noqa: E402
-from dorknet_tpu_torch.ops.cuda.depthwise import depthwise3x3  # noqa: E402
+from dorknet_tpu_torch.ops.cuda.depthwise import _dw_route, depthwise3x3, dw_strip  # noqa: E402
 
 # fp32: the same nine products summed in another order (rtol/atol 1e-5).
 # bf16: inputs on a bf16-exact grid, outputs rounded to bf16 by each side;
@@ -121,3 +123,49 @@ def test_depthwise3x3_cpu_counts_no_launch():
     before = depthwise3x3.launches
     depthwise3x3(torch.randn(1, 5, 5, 3), torch.randn(3, 3, 3), 1)
     assert depthwise3x3.launches == before
+
+
+def _act(shape, dtype, offset=0):
+    """A contiguous NHWC CPU tensor starting ``offset`` elements into its
+    storage (torch.empty: the route reads the shape, type and pointer)."""
+    n = int(np.prod(shape))
+    return torch.empty(n + offset, dtype=dtype)[offset:].view(*shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,C,stride", [(H, C, s) for H, C, s, _ in chip_smoke.FLAGSHIP_DW] +
+                         list(chip_smoke.ODD_DW))
+def test_dw_route_sends_the_flagship_layers_to_channel_vectors(H, C, stride, dtype):
+    """All of the flagship's depthwise shapes at batch 64, and the odd
+    9x9x24, take the 16-byte channel-vector route in fp32 and in bf16."""
+    assert _dw_route(_act((64, H, H, C), dtype)) == "vector"
+
+
+@pytest.mark.parametrize("C,dtype,offset", [
+    (6, torch.float32, 0), (6, torch.bfloat16, 0),     # C not a multiple of the vector
+    (12, torch.bfloat16, 0), (3, torch.float32, 0),
+    (64, torch.float32, 1), (64, torch.bfloat16, 4),   # views that are not 16-byte aligned
+])
+def test_dw_route_keeps_the_rest_scalar(C, dtype, offset):
+    assert _dw_route(_act((2, 9, 9, C), dtype, offset)) == "scalar"
+
+
+@pytest.mark.parametrize("N,H,C,stride,want", [(64, H, C, s, 8) for H, C, s, _ in
+                                                 chip_smoke.FLAGSHIP_DW] + [
+    (8, 14, 256, 1, 4), (4, 56, 64, 2, 2), (1, 9, 24, 1, 1), (4, 14, 64, 1, 1),
+])
+def test_dw_strip_keeps_the_card_busy(N, H, C, stride, want):
+    """The strip is the widest of 8, 4, 2 that still leaves 128 threads per
+    SM of an H100 (132 SMs), in fp32: every flagship layer at batch 64 gets
+    8; smaller layers get narrower strips."""
+    Ho = (H - 1) // stride + 1
+    tw = dw_strip(N, Ho, Ho, C // 4, 132)
+    assert tw == want
+    assert tw == 1 or N * Ho * -(-Ho // tw) * (C // 4) >= 128 * 132
+
+
+def test_dw_routes_count_no_cpu_launch():
+    before = dict(depthwise3x3.launches_by_route)
+    depthwise3x3(torch.randn(1, 5, 5, 8), torch.randn(8, 3, 3), 1)
+    assert set(before) == {"scalar", "vector"}
+    assert depthwise3x3.launches_by_route == before

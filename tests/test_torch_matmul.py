@@ -19,7 +19,8 @@ from dorknet_tpu.ops.pallas.matmul import matmul as jax_matmul  # noqa: E402
 from dorknet_tpu.ops.pallas.matmul import matmul_bn_stats as jax_mm_stats  # noqa: E402
 
 from dorknet_tpu_torch.models import ResNet18  # noqa: E402
-from dorknet_tpu_torch.ops.cuda.matmul import matmul, matmul_bn_stats  # noqa: E402
+from dorknet_tpu_torch.ops.cuda.matmul import _gemm_route, matmul, matmul_bn_stats  # noqa: E402
+from dorknet_tpu_torch.utils import bn_fuse_ab  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -122,3 +123,52 @@ def test_flagship_pointwise_table_matches_the_model(monkeypatch):
     assert got == {(hw, K, N): n for hw, K, N, n in chip_smoke.FLAGSHIP_PW}
     assert sum(got.values()) == 20
     assert seen[-1] == (1,) + chip_smoke.FLAGSHIP_DENSE[1:]
+
+
+def _operand(shape, dtype, offset=0):
+    """A contiguous (rows, cols) CPU tensor whose data starts ``offset``
+    elements into its storage (offset 1 gives a view that is not 16-byte
+    aligned). torch.empty: the route reads shapes and pointers only."""
+    rows, cols = shape
+    return torch.empty(rows * cols + offset, dtype=dtype)[offset:].view(rows, cols)
+
+
+@pytest.mark.parametrize("M,K,N", [(128 * H * H, cin, cout) for _, H, cin, cout in
+                                   bn_fuse_ab.SHAPES] + chip_smoke.JAX_TEST_GEMMS,
+                         ids=[name for name, *_ in bn_fuse_ab.SHAPES] +
+                         ["jax_{}x{}x{}".format(*s) for s in chip_smoke.JAX_TEST_GEMMS])
+def test_gemm_route_sends_bf16_gemms_to_the_tensor_cores(M, K, N):
+    """The BN-fusion A/B's two bf16 GEMMs at batch 128 and the JAX package's
+    test shapes in bf16 take the tensor-core route (csrc/matmul_sm90.cu)."""
+    a = _operand((M, K), torch.bfloat16)
+    b = _operand((K, N), torch.bfloat16)
+    assert _gemm_route(a, b) == "tensor_core"
+
+
+@pytest.mark.parametrize("M,K,N,dtype,offset_a,offset_b", [
+    (401408, 64, 256, torch.float32, 0, 0),   # fp32 always stays on the CUDA cores
+    (25088, 1024, 256, torch.float32, 0, 0),
+    (300, 512, 120, torch.float32, 0, 0),
+    (64, 12, 48, torch.bfloat16, 0, 0),       # K not a multiple of 8
+    (64, 32, 50, torch.bfloat16, 0, 0),       # N not a multiple of 8
+    (64, 0, 8, torch.bfloat16, 0, 0),         # no K at all
+    (64, 32, 48, torch.bfloat16, 1, 0),       # a misaligned view
+    (64, 32, 48, torch.bfloat16, 0, 4),       # b misaligned by 8 bytes
+], ids=["fp32_early", "fp32_deep", "fp32_jax", "k12", "n50", "k0", "a_misaligned",
+        "b_misaligned"])
+def test_gemm_route_keeps_the_rest_on_the_cuda_cores(M, K, N, dtype, offset_a, offset_b):
+    a = _operand((M, K), dtype, offset_a)
+    b = _operand((K, N), dtype, offset_b)
+    assert _gemm_route(a, b) == "cuda_core"
+
+
+def test_gemm_routes_count_no_cpu_launch():
+    """Per-route counters exist for both GEMMs, and CPU tensors (the plain
+    versions) move none of them."""
+    before = (dict(matmul.launches_by_route), dict(matmul_bn_stats.launches_by_route))
+    a = torch.ones(16, 8, dtype=torch.bfloat16)
+    b = torch.ones(8, 16, dtype=torch.bfloat16)
+    matmul(a, b)
+    matmul_bn_stats(a, b)
+    assert set(before[0]) == set(before[1]) == {"cuda_core", "tensor_core"}
+    assert (matmul.launches_by_route, matmul_bn_stats.launches_by_route) == before
