@@ -11,9 +11,9 @@ Phases (each checks its results; any failure ends the run non-zero with no
 "ok" line):
 
 1. build: compile the hand-written CUDA kernels from ``dorknet_tpu_torch/csrc``
-   with nvcc (sm_90a), print the card's name and power limit, and require
-   ``HGMMA`` (wgmma) in the SASS of every tensor-core GEMM kernel
-   (``cuobjdump -sass``);
+   with nvcc (sm_90a), print the card's name and power limit and each
+   kernel's registers and spills (``ptxas -v``), and require ``HGMMA``
+   (wgmma) in the SASS of every tensor-core GEMM kernel (``cuobjdump -sass``);
 2. kernel vs plain: ``depthwise3x3`` against its plain PyTorch version on the
    card at the flagship's seven depthwise shapes at batch 64, an odd 9x9x24
    (both on the channel-vector route) and a 9x9x6 (the scalar route), in
@@ -23,8 +23,8 @@ Phases (each checks its results; any failure ends the run non-zero with no
    ``InferenceRunner(batch_size=64, device="cuda").predict_probs`` on 150
    images (three dispatches, the last padded); every depthwise layer of every
    dispatch must launch the kernel on the channel-vector route (here and in
-   every later path, fp32 and bf16 flow), and the probs must match the same
-   network's forward on CPU tensors;
+   every later path, fp32 and bf16 flow; in training dx and dw too), and the
+   probs must match the same network's forward on CPU tensors;
 4. serving: ``BatchingServer`` with 64 concurrent single-image requests and
    one 5-image request;
 5. times (CUDA events, median of 50 after 10 warm-ups): per depthwise shape
@@ -33,9 +33,10 @@ Phases (each checks its results; any failure ends the run non-zero with no
    the scalar route (in turns: old, new, new, old), cuDNN and the vector
    route at each strip width; the served forward at batch 64 in fp32 and in
    bf16 flow;
-6. backward kernels vs plain: ``depthwise3x3_dx`` and ``depthwise3x3_dw``
-   against their plain PyTorch versions at the same shapes, in fp32 and
-   bf16; two dw runs must be bit-equal;
+6. backward kernels vs plain: ``depthwise3x3_dx`` and ``depthwise3x3_dw``,
+   each on both routes, against their plain PyTorch versions at the same
+   shapes, in fp32 and bf16; dx's channel-vector route bit-equal to its
+   scalar route at every strip width; two dw runs bit-equal on each route;
 6b. ``batch_norm_stats`` against its plain PyTorch version and an fp64
    reference at the inputs of the flagship's 34 train-mode batch norms at
    batch 64 (8 distinct shapes), in fp32 and bf16, an odd 4x5x5x24, and the
@@ -46,13 +47,16 @@ Phases (each checks its results; any failure ends the run non-zero with no
 7. the training slice: ResNet-18-depsep at full width, fresh batch norms,
    three ``Trainer.step``s (SGDMomentum, EMA) at batch 64 on seeded data;
    every step must launch the forward, dx and dw kernels 16 times each and
-   ``batch_norm_stats`` 34 times, and give a finite loss. Then a CPU twin:
+   ``batch_norm_stats`` 34 times, and give a finite loss; then one step in
+   bf16 flow. Then a CPU twin:
    two steps at batch 4 (with clip and EMA) on the card and on the CPU must
    agree;
 8. training times: per depthwise shape the dx and dw kernels against their
-   plain versions and cuDNN's grouped-conv backward; ``Trainer.step`` at
-   batch 64 in fp32 and in bf16 flow; a ``torch.profiler`` breakdown of
-   the fp32 step by kernel class;
+   plain versions and cuDNN's grouped-conv backward (TF32 off); the 16
+   layers' device time of both routes of each (in turns: old, new, new,
+   old), cuDNN's dx and dw alone and dx at each strip width, fp32 and bf16;
+   ``Trainer.step`` at batch 64 in fp32 and in bf16 flow; a
+   ``torch.profiler`` breakdown of the fp32 step by kernel class;
 9. augmentation kernel vs plain: ``augment_planes_fused`` against its plain
    PyTorch version on the card at the flagship's batch (60 precrops of
    281x281 uint8 -> 225x225) in six configurations (crop random or center,
@@ -65,9 +69,9 @@ Phases (each checks its results; any failure ends the run non-zero with no
     one chunk; ResNet-18-depsep at full width trained by five
     ``Trainer.step_augmented_indexed`` steps (the flagship's augmentation,
     mixup, 120 images a step) and one ``multi_step_augmented_indexed`` of
-    three; every step must launch the augmentation kernel once, the
-    depthwise forward, dx and dw kernels 16 times each and
-    ``batch_norm_stats`` 34 times, with a finite loss.
+    three, and one step in bf16 flow; every step must launch the
+    augmentation kernel once, the depthwise forward, dx and dw kernels 16
+    times each and ``batch_norm_stats`` 34 times, with a finite loss.
     Then, under one generator seed, ``step_augmented``,
     ``train_pipeline`` + ``Trainer.step`` and ``step_augmented_indexed``
     must agree;
@@ -89,11 +93,12 @@ Phases (each checks its results; any failure ends the run non-zero with no
 13. ``Trainer.accumulate_step`` on a fresh flagship, K = 2 micro-batches of
     64: the BN pre-pass and the two micro-batches launch
     ``batch_norm_stats`` 34 x 3 times, the depthwise forward 48 and dx and
-    dw 32 each, with a finite loss; a second call without the pre-pass, and
-    its time.
+    dw 32 each, with a finite loss; a second call without the pre-pass, one
+    in bf16 flow, and its time.
 
 The line before the last is a JSON object of the kernels of the paths (with
-each kernel's launches by route, and both routes' times); the last line is
+each kernel's launches by route, and both routes' times, device times
+included); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -125,8 +130,9 @@ from dorknet_tpu_torch.ops.cuda.augment import (
 from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats, batch_norm_stats_plain
 from dorknet_tpu_torch.ops.cuda.build import load_library
 from dorknet_tpu_torch.ops.cuda.depthwise import (
-    _dw_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain, depthwise3x3_dx,
-    depthwise3x3_dx_plain, depthwise3x3_plain, launch_forward)
+    _dw_route, _dwgrad_route, _dx_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain,
+    depthwise3x3_dx, depthwise3x3_dx_plain, depthwise3x3_plain, launch_dw, launch_dx,
+    launch_forward)
 from dorknet_tpu_torch.ops.cuda.matmul import (
     _gemm_route, launch_matmul, launch_matmul_bn_stats, matmul, matmul_bn_stats,
     matmul_bn_stats_plain, matmul_plain)
@@ -232,15 +238,23 @@ def reset_launches(kernels):
             k.launches_by_route[route] = 0
 
 
-def require_vector_route(what, before=None):
-    """Every depthwise forward since ``before`` (a copy of the per-route
-    counts; default 0) took the channel-vector route, and at least one ran."""
-    by = depthwise3x3.launches_by_route
-    before = before or dict.fromkeys(by, 0)
-    delta = {r: by[r] - before[r] for r in by}
-    log("  {}: depthwise3x3 launches by route {}".format(what, delta))
-    require(delta["scalar"] == 0 and delta["vector"] > 0,
-            "{}: a depthwise layer missed the channel-vector route".format(what))
+def route_counts(kernels=KERNELS):
+    """A copy of each kernel's launches by route."""
+    return [dict(k.launches_by_route) for k in kernels]
+
+
+def require_vector_route(what, before=None, kernels=(depthwise3x3,)):
+    """Every launch of each of ``kernels`` since ``before`` (their
+    ``route_counts``; default 0) took the channel-vector route, and each of
+    them launched at least once."""
+    before = before or [dict.fromkeys(k.launches_by_route, 0) for k in kernels]
+    for k, b in zip(kernels, before, strict=True):
+        by = k.launches_by_route
+        delta = {r: by[r] - b[r] for r in by}
+        log("  {}: {} launches by route {}".format(what, k.__name__, delta))
+        require(delta["scalar"] == 0 and delta["vector"] > 0,
+                "{}: a depthwise layer missed {}'s channel-vector route".format(
+                    what, k.__name__))
 
 
 def card_line():
@@ -316,14 +330,64 @@ def sass_hgmma(path):
     return len(funcs), sum("HGMMA" in f for f in funcs)
 
 
+_TEMPLATE_ARGS = [(r"13__nv_bfloat16", "bf16"), (r"Li(\d+)E", None), (r"f", "fp32"),
+                  (r"j", "u32"), (r"l", "i64"), (r"i", "int"), (r"b", "bool")]
+
+
+def kernel_label(mangled):
+    """'name<args>' of a mangled kernel name, its template arguments read for
+    the types and integers the port's kernels take."""
+    pos = 3 if mangled.startswith("_ZN") else 2  # the nested names, length-prefixed
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            return mangled
+        start = pos + m.end()
+        name = mangled[start:start + int(m.group())]
+        pos = start + len(name)
+        if not name.endswith("kernel"):
+            continue
+        rest, args = mangled[pos:], []
+        if rest.startswith("I"):
+            rest = rest[1:]
+            while rest and not rest.startswith("E"):
+                for pat, label in _TEMPLATE_ARGS:
+                    t = re.match(pat, rest)
+                    if t:
+                        args.append(label or t.group(1))
+                        rest = rest[t.end():]
+                        break
+                else:
+                    args.append(rest)
+                    break
+        return "{}<{}>".format(name, ",".join(args)) if args else name
+
+
+def ptxas_report(compiler_log):
+    """(kernel, registers, spill bytes) of each entry function in nvcc's
+    ``-Xptxas -v`` output."""
+    out, name, spills = [], None, 0
+    for line in compiler_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = kernel_label(m.group(1)), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spills))
+            name = None
+    return out
+
+
 def phase_build():
     log("== phase 1: build")
     log("card:", card_line())
     kernels = load_library()
     log("build: nvcc {:.2f} s -> {}".format(kernels.build_seconds, kernels.path))
-    for line in kernels.compiler_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas:", line.strip())
+    for name, regs, spills in ptxas_report(kernels.compiler_log):
+        log("ptxas: {:<48} {:>3} registers, {} bytes spilled".format(name, regs, spills))
     n_tc, n_hgmma = sass_hgmma(kernels.path)
     log("  SASS: {} tensor-core GEMM kernels, {} with HGMMA".format(n_tc, n_hgmma))
     require(n_tc == 4 and n_hgmma == n_tc, "the tensor-core GEMM's SASS lacks HGMMA")
@@ -561,7 +625,7 @@ def phase_times(runner, X):
         p32 = net._test_fn(x64).float()
         config.set_compute_dtype(torch.bfloat16)
         try:
-            before = dict(depthwise3x3.launches_by_route)
+            before = route_counts((depthwise3x3,))
             ms16 = cuda_ms(lambda: net._test_fn(x64))
             p16 = net._test_fn(x64).float()
             torch.cuda.synchronize()
@@ -600,22 +664,33 @@ def grad_input(N, H, C, stride, dtype, seed):
 
 
 def phase_bwd_vs_plain():
-    """Returns the largest fp32 max-abs errors of dx and dw at the
-    flagship's shapes."""
-    log("== phase 6: depthwise3x3_dx and depthwise3x3_dw kernels vs plain on the card")
+    """Returns the largest fp32 max-abs errors of dx and dw (their routed
+    kernels) at the flagship's shapes."""
+    log("== phase 6: depthwise3x3_dx and depthwise3x3_dw kernels, both routes, vs plain on "
+        "the card")
     log("  limits: dx as the forward (fp32 1e-5*max|dx|+1e-6; bf16 1e-2, equal sums "
-        "expected); dw 2e-5*sum|x*g| per tap and channel + 1e-6; dw twice bit-equal")
+        "expected), its vector route bit-equal to its scalar route at every strip width {}; "
+        "dw 2e-5*sum|x*g| per tap and channel + 1e-6 on each route, each route twice "
+        "bit-equal".format(DW_STRIPS))
     worst = {"dx": 0.0, "dw": 0.0}
     cases = [(H, C, s, BATCH) for H, C, s, _ in FLAGSHIP_DW] + \
-            [(H, C, s, 4) for H, C, s in ODD_DW]
+            [(H, C, s, 4) for H, C, s in ODD_DW + SCALAR_DW]
     for i, (H, C, stride, N) in enumerate(cases):
         for dtype in (torch.float32, torch.bfloat16):
             x, w = dw_inputs(N, H, C, dtype, seed=200 + i)
             g = grad_input(N, H, C, stride, dtype, seed=300 + i)
+            routes = (_dx_route(g), _dwgrad_route(x, g))
+            want = "scalar" if C % 4 else "vector"
+            require(routes == (want, want), "{}x{}x{} took the dx/dw routes {}".format(
+                H, H, C, routes))
             dx = depthwise3x3_dx(g, w, stride, H, H)
+            dxs = launch_dx(g, w, stride, H, H, "scalar")
+            strips = [launch_dx(g, w, stride, H, H, "vector", tw) for tw in DW_STRIPS] \
+                if want == "vector" else []
             ref = depthwise3x3_dx_plain(g, w, stride, H, H)
             dw = depthwise3x3_dw(x, g, stride)
-            dw2 = depthwise3x3_dw(x, g, stride)
+            dws = {r: (launch_dw(x, g, stride, r), launch_dw(x, g, stride, r))
+                   for r in (("scalar", "vector") if want == "vector" else ("scalar",))}
             dw_ref = depthwise3x3_dw_plain(x, g, stride)
             scale = depthwise3x3_dw_plain(x.float().abs(), g.float().abs(), stride)
             torch.cuda.synchronize()
@@ -623,23 +698,29 @@ def phase_bwd_vs_plain():
                     "dx {} {}".format(dx.dtype, tuple(dx.shape)))
             require(dw.dtype == torch.float32 and dw.shape == (C, 3, 3),
                     "dw {} {}".format(dw.dtype, tuple(dw.shape)))
+            dx_same = all(torch.equal(v, dxs) for v in [dx] + strips)
             dx_err = (dx.float() - ref.float()).abs().max().item()
             dx_scale = ref.float().abs().max().item()
             dx_limit = 1e-5 * dx_scale + 1e-6 if dtype == torch.float32 else 1e-2
-            dw_diff = (dw - dw_ref).abs()
-            dw_err = dw_diff.max().item()
-            dw_ratio = (dw_diff / (2e-5 * scale + 1e-6)).max().item()
-            same = bool(torch.equal(dw, dw2))
+            dw_limit = 2e-5 * scale + 1e-6
+            dw_err = (dw - dw_ref).abs().max().item()
+            dw_ratio = {r: ((a - dw_ref).abs() / dw_limit).max().item() for r, (a, _) in dws.items()}
+            dw_same = {r: bool(torch.equal(a, b)) for r, (a, b) in dws.items()}
+            routed_same = bool(torch.equal(dw, dws[want][0]))
             if dtype == torch.float32 and N == BATCH:
                 worst["dx"] = max(worst["dx"], dx_err)
                 worst["dw"] = max(worst["dw"], dw_err)
-            log("  N={} {}x{}x{} s{} {}: dx max|err| {:.3e} (limit {:.3e}); dw max|err| "
-                "{:.3e}, {:.3f} of its limit, repeat bit-equal {}".format(
-                    N, H, H, C, stride, str(dtype).split(".")[1], dx_err, dx_limit,
-                    dw_err, dw_ratio, same))
+            log("  N={} {}x{}x{} s{} {}: {} routes; dx max|err| {:.3e} (limit {:.3e}), the scalar "
+                "route, {} strip widths and the routed call bit-equal {}; dw max|err| {:.3e}, "
+                "share of its limit by route {}, each route twice bit-equal {}".format(
+                    N, H, H, C, stride, str(dtype).split(".")[1], want, dx_err, dx_limit,
+                    len(strips), dx_same, dw_err, {r: round(v, 4) for r, v in dw_ratio.items()},
+                    dw_same))
             require(dx_err <= dx_limit, "depthwise3x3_dx disagrees with its plain version")
-            require(dw_ratio <= 1.0, "depthwise3x3_dw disagrees with its plain version")
-            require(same, "two depthwise3x3_dw runs differ")
+            require(dx_same, "the dx routes or strip widths differ")
+            require(all(v <= 1.0 for v in dw_ratio.values()),
+                    "depthwise3x3_dw disagrees with its plain version")
+            require(all(dw_same.values()) and routed_same, "two depthwise3x3_dw runs differ")
     return worst
 
 
@@ -759,9 +840,18 @@ def fresh_resnet18():
     return ResNet18("dogs", num_classes=NUM_CLASSES)
 
 
+def bf16_flow(fn):
+    """fn() under the bf16 compute policy, then back to fp32."""
+    config.set_compute_dtype(torch.bfloat16)
+    try:
+        return fn()
+    finally:
+        config.set_compute_dtype(torch.float32)
+
+
 def phase_train():
-    """Returns the trainer and the launches of each kernel over its three
-    steps."""
+    """Returns the trainer, the launches of each kernel over its three fp32
+    steps, and the depthwise kernels' launches by route in them."""
     log("== phase 7: ResNet18 trained by Trainer.step on the card")
     net = fresh_resnet18()
     trainer = Trainer(net, SGDMomentum(net, TRAIN_LR, 0.9), ema_decay=0.999, device=DEVICE)
@@ -778,14 +868,24 @@ def phase_train():
         require(np.isfinite(float(loss)), "non-finite loss")
         require(tuple(preds.shape) == (BATCH,), "preds shape {}".format(tuple(preds.shape)))
     launches = [k.launches for k in TRAIN_KERNELS]
-    require_vector_route("training run")
+    routes = route_counts()
+    require_vector_route("training run", kernels=KERNELS)
+    before = [k.launches for k in TRAIN_KERNELS]
+    loss16, _ = bf16_flow(lambda: trainer.step(X[0], y[0]))
+    torch.cuda.synchronize()
+    per_step = [k.launches - b for k, b in zip(TRAIN_KERNELS, before)]
+    log("  a step in bf16 flow: loss {:.6f}, launches forward/dx/dw/bn_stats {}".format(
+        float(loss16), per_step))
+    require(per_step == TRAIN_WANT, "a bf16-flow step missed a kernel")
+    require(np.isfinite(float(loss16)), "non-finite bf16-flow loss")
+    require_vector_route("training step, bf16 flow", routes, KERNELS)
     require(all(l.bn_initialized() for l in net.layers), "a batch norm was not initialised")
     require(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
             "non-finite parameters")
     require(all(bool(torch.isfinite(e).all()) for e in trainer._ema), "non-finite EMA")
     log("  3 steps at batch {}: launches forward/dx/dw/bn_stats {} (want {})".format(
         BATCH, launches, [3 * n for n in TRAIN_WANT]))
-    return trainer, launches
+    return trainer, launches, routes
 
 
 def phase_train_twin():
@@ -824,19 +924,29 @@ def cudnn_grad(g, x, w, stride, mask):
 
 
 def phase_bwd_times():
-    """Returns {name: ms} summed over the flagship's 16 depthwise layers,
-    fp32, batch 64."""
-    log("== phase 8: backward kernel times (CUDA events, median of 50 after 10 warm-ups)")
+    """Returns {name: ms} summed over the flagship's 16 depthwise layers at
+    batch 64: CUDA events around each call (fp32 unless named), and the
+    device time of both routes, cuDNN and dx's strip widths (``device_*``)."""
+    log("== phase 8: backward kernel times (CUDA events, median of 50 after 10 warm-ups; "
+        "device time of the 16 layers)")
     log("card:", card_line())
     log("  depthwise 3x3 backward, batch {}, fp32 unless noted; cuDNN is "
         "aten.convolution_backward of F.conv2d(groups=C) on the channels-last "
-        "views, for reference".format(BATCH))
+        "views, dx alone and dw alone, for reference; torch.backends.cudnn.allow_tf32 = {} "
+        "(TF32 off: cuDNN computes the same fp32 function)".format(
+            BATCH, torch.backends.cudnn.allow_tf32))
+    require(not torch.backends.cudnn.allow_tf32, "cuDNN's yardstick would run in TF32")
     keys = ("dx", "dx_plain", "dx_cudnn", "dx_bf16", "dw", "dw_plain", "dw_cudnn", "dw_bf16")
     totals = dict.fromkeys(keys, 0.0)
-    for i, (H, C, stride, n_layers) in enumerate(FLAGSHIP_DW):
+    calls = {}  # the 16 layers' calls, for device time
+
+    def add(key, n, fn):
+        calls.setdefault(key, []).extend([fn] * n)
+
+    for i, (H, C, stride, n) in enumerate(FLAGSHIP_DW):
         x, w = dw_inputs(BATCH, H, C, torch.float32, seed=400 + i)
         g = grad_input(BATCH, H, C, stride, torch.float32, seed=500 + i)
-        xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+        xb, gb, wb = x.to(torch.bfloat16), g.to(torch.bfloat16), w.to(torch.bfloat16)
         t = {
             "dx": cuda_ms(lambda: depthwise3x3_dx(g, w, stride, H, H)),
             "dx_plain": cuda_ms(lambda: depthwise3x3_dx_plain(g, w, stride, H, H)),
@@ -848,20 +958,59 @@ def phase_bwd_times():
             "dw_bf16": cuda_ms(lambda: depthwise3x3_dw(xb, gb, stride)),
         }
         for k in keys:
-            totals[k] += n_layers * t[k]
+            totals[k] += n * t[k]
         nbytes = dw_bytes(BATCH, H, C, stride)
         log("  {}x{}x{} s{} (x{}): dx {:.4f} ms ({:.0f} GB/s), plain {:.4f}, cuDNN {:.4f}, "
             "bf16 {:.4f} | dw {:.4f} ms ({:.0f} GB/s), plain {:.4f}, cuDNN {:.4f}, "
             "bf16 {:.4f}".format(
-                H, H, C, stride, n_layers, t["dx"], nbytes / t["dx"] / 1e6, t["dx_plain"],
+                H, H, C, stride, n, t["dx"], nbytes / t["dx"] / 1e6, t["dx_plain"],
                 t["dx_cudnn"], t["dx_bf16"], t["dw"], nbytes / t["dw"] / 1e6,
                 t["dw_plain"], t["dw_cudnn"], t["dw_bf16"]))
-    bound, _ = flagship_bound_ms()
+        for dt, xx, gg, ww in (("", x, g, w), ("_bf16", xb, gb, wb)):
+            for r in ("scalar", "vector"):
+                add("dx_" + r + dt, n, lambda g=gg, w=w, s=stride, H=H, r=r:
+                    launch_dx(g, w, s, H, H, r))
+                add("dw_" + r + dt, n, lambda x=xx, g=gg, s=stride, r=r: launch_dw(x, g, s, r))
+            for tw in DW_STRIPS:
+                add("dx_tw{}{}".format(tw, dt), n, lambda g=gg, w=w, s=stride, H=H, tw=tw:
+                    launch_dx(g, w, s, H, H, "vector", tw))
+            add("dx_cudnn" + dt, n, lambda g=gg, x=xx, w=ww, s=stride:
+                cudnn_grad(g, x, w, s, [True, False, False]))
+            add("dw_cudnn" + dt, n, lambda g=gg, x=xx, w=ww, s=stride:
+                cudnn_grad(g, x, w, s, [False, True, False]))
+    # the routes in turns (old, new, new, old), then cuDNN and the strip widths
+    device = {k: [] for k in calls}
+    for route in ("scalar", "vector", "vector", "scalar"):
+        for k in ("dx_", "dw_"):
+            for dt in ("", "_bf16"):
+                device[k + route + dt].append(device_ms(calls[k + route + dt]))
+    for k in calls:
+        if not device[k]:
+            device[k].append(device_ms(calls[k]))
+    dev = {k: statistics.mean(v) for k, v in device.items()}
+    bound, by = flagship_bound_ms()
     for k in ("dx", "dw"):
-        log("  16 layers per batch of {}: {} kernel {:.4f} ms, plain {:.4f} ms, cuDNN {:.4f} "
-            "ms, kernel bf16 {:.4f} ms; fp32 bound {:.4f} ms, the kernel reaches {:.1%} of "
-            "it".format(BATCH, k, totals[k], totals[k + "_plain"], totals[k + "_cudnn"],
-                        totals[k + "_bf16"], bound, bound / totals[k]))
+        log("  {} over 16 layers per batch of {}, events: kernel {:.4f} ms, plain {:.4f} ms, "
+            "cuDNN {:.4f} ms, kernel bf16 {:.4f} ms".format(
+                k, BATCH, totals[k], totals[k + "_plain"], totals[k + "_cudnn"],
+                totals[k + "_bf16"]))
+        log("  {} device time (calls queued behind a spin kernel, host gaps left out, mean of "
+            "5; routes in turns {}): fp32 vector {:.4f} ms ({:.1%} of the {:.4f} ms {} bound), "
+            "scalar {:.4f} ms, cuDNN {:.4f} ms; bf16 vector {:.4f} ms ({:.1%} of {:.4f} ms), "
+            "scalar {:.4f} ms, cuDNN {:.4f} ms".format(
+                k, {r: [round(v, 4) for v in device["{}_{}".format(k, r)]]
+                    for r in ("vector", "scalar")},
+                dev[k + "_vector"], bound / dev[k + "_vector"], bound, by, dev[k + "_scalar"],
+                dev[k + "_cudnn"], dev[k + "_vector_bf16"], bound / 2 / dev[k + "_vector_bf16"],
+                bound / 2, dev[k + "_scalar_bf16"], dev[k + "_cudnn_bf16"]))
+        for dt in ("", "_bf16"):
+            totals["device_{}{}".format(k, dt)] = dev["{}_vector{}".format(k, dt)]
+            totals["device_{}_scalar{}".format(k, dt)] = dev["{}_scalar{}".format(k, dt)]
+            totals["device_{}_cudnn{}".format(k, dt)] = dev["{}_cudnn{}".format(k, dt)]
+    log("  dx's vector route at each strip width for all 16 layers, device ms (the route "
+        "picks dw_strip's): fp32 {}; bf16 {}".format(
+            {tw: round(dev["dx_tw{}".format(tw)], 4) for tw in DW_STRIPS},
+            {tw: round(dev["dx_tw{}_bf16".format(tw)], 4) for tw in DW_STRIPS}))
     return totals
 
 
@@ -924,14 +1073,10 @@ def phase_train_times(trainer):
     x = torch.from_numpy(X[0]).to(DEVICE)
     yt = torch.from_numpy(y[0]).to(DEVICE)
     ms32 = cuda_ms(lambda: trainer.step(x, yt), warmup=3, iters=10)
-    config.set_compute_dtype(torch.bfloat16)
-    try:
-        before = dict(depthwise3x3.launches_by_route)
-        ms16 = cuda_ms(lambda: trainer.step(x, yt), warmup=3, iters=10)
-        loss16 = float(trainer.step(x, yt)[0])
-        require_vector_route("Trainer.step, bf16 flow", before)
-    finally:
-        config.set_compute_dtype(torch.float32)
+    before = route_counts()
+    ms16 = bf16_flow(lambda: cuda_ms(lambda: trainer.step(x, yt), warmup=3, iters=10))
+    loss16 = float(bf16_flow(lambda: trainer.step(x, yt))[0])
+    require_vector_route("Trainer.step, bf16 flow", before, KERNELS)
     require(np.isfinite(loss16), "non-finite bf16-flow loss")
     log("  Trainer.step, batch {}: fp32 {:.3f} ms = {:.0f} img/s; bf16 flow {:.3f} ms = "
         "{:.0f} img/s (loss {:.4f})".format(BATCH, ms32, BATCH / ms32 * 1e3, ms16,
@@ -1128,7 +1273,16 @@ def phase_aug_train(dd):
     require(bool(torch.isfinite(losses).all()) and tuple(preds.shape) == (3, 2 * AUG_BATCH),
             "multi-step losses or preds")
     launches = [k.launches for k in AUG_KERNELS]
-    require_vector_route("augmented training run")
+    require_vector_route("augmented training run", kernels=KERNELS)
+    before, routes = [k.launches for k in AUG_KERNELS], route_counts()
+    loss16, _ = bf16_flow(lambda: trainer.step_augmented_indexed(
+        gen, dd.images, dd.labels, dd.next_indices(), AUG_OUT, dd.num_classes, **aug))
+    torch.cuda.synchronize()
+    per_step = [k.launches - b for k, b in zip(AUG_KERNELS, before)]
+    log("  a step in bf16 flow: loss {:.6f}, launches augment/forward/dx/dw/bn_stats {}".format(
+        float(loss16), per_step))
+    require(per_step == want and np.isfinite(float(loss16)), "the bf16-flow step")
+    require_vector_route("augmented step, bf16 flow", routes, KERNELS)
     require(all(bool(torch.isfinite(p).all()) for p in trainer.network.parameters()),
             "non-finite parameters")
     log("  8 steps of {} trained images: launches augment/forward/dx/dw/bn_stats {}".format(
@@ -1489,12 +1643,20 @@ def phase_accumulate():
         loss = trainer.accumulate_step(X[sl], y[sl])
         torch.cuda.synchronize()
         got = [k.launches for k in TRAIN_KERNELS]
-        require_vector_route("accumulate call {}".format(call))
+        require_vector_route("accumulate call {}".format(call), kernels=KERNELS)
         launches.append(got)
         log("  call {} ({} batch norms): loss {:.6f}, launches forward/dx/dw/bn_stats {} "
             "(want {})".format(call, "fresh" if call == 0 else "set", float(loss), got, want))
         require(got == want, "the accumulate step missed a kernel")
         require(loss.shape == () and np.isfinite(float(loss)), "accumulate loss")
+    reset_launches(TRAIN_KERNELS)
+    loss16 = bf16_flow(lambda: trainer.accumulate_step(X[:ACC_K], y[:ACC_K]))
+    torch.cuda.synchronize()
+    got = [k.launches for k in TRAIN_KERNELS]
+    log("  a call in bf16 flow: loss {:.6f}, launches forward/dx/dw/bn_stats {}".format(
+        float(loss16), got))
+    require(got == wants[1] and np.isfinite(float(loss16)), "the bf16-flow accumulate call")
+    require_vector_route("accumulate call, bf16 flow", kernels=KERNELS)
     require(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
             "non-finite parameters")
     xs = torch.from_numpy(X[:ACC_K]).to(DEVICE)
@@ -1526,8 +1688,7 @@ def main():
     bwd_err = phase_bwd_vs_plain()
     bn_err = phase_bn_stats_vs_plain()
     bn = phase_bn_stats_times()
-    trainer, launches = phase_train()
-    train_routes = dict(depthwise3x3.launches_by_route)
+    trainer, launches, train_routes = phase_train()
     phase_train_twin()
     bwd = phase_bwd_times()
     phase_train_times(trainer)
@@ -1541,6 +1702,14 @@ def main():
     bound_ms, bound_by = flagship_bound_ms()
     dw_bound, dw_by = flagship_bound_ms(lambda C: 9 * C * 4)
     entry = dict(route="cuda", replaces="dorknet_tpu/ops/pallas/depthwise.py:205")
+
+    def bwd_device(k):
+        """dx's or dw's device times in the kernels line."""
+        return {"{}{}".format(dt, key): bwd["device_{}{}{}".format(k, suffix, dt and "_bf16")]
+                for dt in ("", "bf16_")
+                for key, suffix in (("device_ms", ""), ("old_route_device_ms", "_scalar"),
+                                    ("library_device_ms", "_cudnn"))}
+
     log("  launches: serving run forward {}; training run forward/dx/dw/bn_stats {}; augmented "
         "training run augment/forward/dx/dw/bn_stats {}; A/B run matmul/matmul_bn_stats/"
         "bn_stats {}; accumulate run forward/dx/dw/bn_stats {}".format(
@@ -1551,7 +1720,7 @@ def main():
              replaces="dorknet_tpu/ops/pallas/depthwise.py:192",
              launches=launches[0], max_abs_err=max_err, ms=fwd["kernel"],
              plain_ms=fwd["plain"], bound_ms=bound_ms, bound_by=bound_by,
-             library_ms=fwd["cudnn"], launches_by_route=train_routes,
+             library_ms=fwd["cudnn"], launches_by_route=train_routes[0],
              device_ms=fwd["device_vector"], old_route_ms=fwd["scalar"],
              old_route_device_ms=fwd["device_scalar"], library_device_ms=fwd["device_cudnn"],
              bf16_device_ms=fwd["device_vector_bf16"],
@@ -1560,11 +1729,13 @@ def main():
         dict(name="depthwise3x3_dx", source="dorknet_tpu_torch/csrc/depthwise3x3_bwd.cu",
              launches=launches[1], max_abs_err=bwd_err["dx"], ms=bwd["dx"],
              plain_ms=bwd["dx_plain"], bound_ms=bound_ms, bound_by=bound_by,
-             library_ms=bwd["dx_cudnn"], **entry),
+             library_ms=bwd["dx_cudnn"], launches_by_route=train_routes[1],
+             **bwd_device("dx"), **entry),
         dict(name="depthwise3x3_dw", source="dorknet_tpu_torch/csrc/depthwise3x3_bwd.cu",
              launches=launches[2], max_abs_err=bwd_err["dw"], ms=bwd["dw"],
              plain_ms=bwd["dw_plain"], bound_ms=dw_bound, bound_by=dw_by,
-             library_ms=bwd["dw_cudnn"], **entry),
+             library_ms=bwd["dw_cudnn"], launches_by_route=train_routes[2],
+             **bwd_device("dw"), **entry),
         dict(name="augment_planes_fused", route="cuda",
              source="dorknet_tpu_torch/csrc/augment_planes.cu",
              replaces="dorknet_tpu/ops/pallas/augment.py:205", launches=aug_launches[0],

@@ -1,6 +1,8 @@
 // Helpers shared by the port's CUDA sources: fp32 loads and stores of fp32
-// or bf16 elements, the launch grid of a grid-stride elementwise kernel, and
-// the second pass of the batch-norm statistics (bn_stats.cu, matmul.cu).
+// or bf16 elements, the launch grid of a grid-stride elementwise kernel, the
+// channel vectors and input window of the depthwise kernels
+// (depthwise3x3.cu, depthwise3x3_bwd.cu), and the second pass of the
+// batch-norm statistics (bn_stats.cu, matmul.cu).
 
 #pragma once
 
@@ -32,6 +34,87 @@ inline cudaError_t grid_stride_blocks(int64_t total, int threads, int* blocks) {
     const int64_t cap = (int64_t)sms * 16;
     *blocks = (int)(want < cap ? want : cap);
     return cudaSuccess;
+}
+
+inline bool aligned(const void* p, int bytes) {
+    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+inline bool aligned16(const void* p) { return aligned(p, 16); }
+
+// ---- channel vectors of the depthwise kernels ----------------------------
+
+constexpr int VEC_THREADS = 128;  // threads of a channel-vector block
+constexpr int VEC_TILE = 32;      // channel vectors of a block, at most
+
+// V neighbouring channels of one pixel, loaded with one load and kept raw
+// (four registers for 4 fp32 or 8 bf16, two for 4 bf16), widened to fp32
+// where a tap uses it, and stored from fp32 sums. The default V fills 16
+// bytes.
+template <typename T, int V_ = 16 / (int)sizeof(T)> struct Vec;
+template <> struct Vec<float, 4> {
+    static constexpr int V = 4;
+    using Raw = float4;
+    static __device__ __forceinline__ Raw load(const float* p) {
+        return *reinterpret_cast<const float4*>(p);
+    }
+    static __device__ __forceinline__ void widen(const Raw& r, float (&v)[4]) {
+        v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+    }
+    static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+};
+template <> struct Vec<__nv_bfloat16, 8> {
+    static constexpr int V = 8;
+    using Raw = uint4;
+    static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+        return *reinterpret_cast<const uint4*>(p);
+    }
+    static __device__ __forceinline__ void widen(const Raw& r, float (&v)[8]) {
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float2 f = __bfloat1622float2(h[i]);
+            v[2 * i] = f.x;
+            v[2 * i + 1] = f.y;
+        }
+    }
+    static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
+        uint4 t;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+        *reinterpret_cast<uint4*>(p) = t;
+    }
+};
+// 4 bf16 channels in 8 bytes: the dw kernel's vector (read only)
+template <> struct Vec<__nv_bfloat16, 4> {
+    static constexpr int V = 4;
+    using Raw = uint2;
+    static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+        return *reinterpret_cast<const uint2*>(p);
+    }
+    static __device__ __forceinline__ void widen(const Raw& r, float (&v)[4]) {
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const float2 f = __bfloat1622float2(h[i]);
+            v[2 * i] = f.x;
+            v[2 * i + 1] = f.y;
+        }
+    }
+};
+
+// One column (wi) of the R rows a strip reads: the vectors of rows inside
+// the image and of a column inside it (0 <= wi < W); the rest are never
+// read.
+template <typename T, int V = 16 / (int)sizeof(T), int R>
+__device__ __forceinline__ void load_column(const T* const* rows, const bool* row_ok, int wi,
+                                            int W, int C, typename Vec<T, V>::Raw (&col)[R]) {
+    if (wi < 0 || wi >= W) return;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+        if (row_ok[r]) col[r] = Vec<T, V>::load(rows[r] + (int64_t)wi * C);
 }
 
 constexpr int STATS_TX = 32;  // columns of a finishing block: one warp

@@ -126,62 +126,7 @@ void launch_kernel(const T* x, const float* w, T* y, int H, int W, int C,
     }
 }
 
-// ---- route 1: channel vectors -------------------------------------------
-
-constexpr int VEC_THREADS = 128;
-constexpr int VEC_TILE = 32;  // channel vectors of a block, at most
-
-// A 16-byte vector of channels: loaded and kept raw (4 fp32 or 8 bf16, four
-// registers either way), widened to fp32 where a tap uses it, and stored
-// from fp32 sums.
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-    static constexpr int V = 4;
-    using Raw = float4;
-    static __device__ __forceinline__ Raw load(const float* p) {
-        return *reinterpret_cast<const float4*>(p);
-    }
-    static __device__ __forceinline__ void widen(const Raw& r, float (&v)[4]) {
-        v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-    }
-    static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
-        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    }
-};
-template <> struct Vec<__nv_bfloat16> {
-    static constexpr int V = 8;
-    using Raw = uint4;
-    static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
-        return *reinterpret_cast<const uint4*>(p);
-    }
-    static __device__ __forceinline__ void widen(const Raw& r, float (&v)[8]) {
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const float2 f = __bfloat1622float2(h[i]);
-            v[2 * i] = f.x;
-            v[2 * i + 1] = f.y;
-        }
-    }
-    static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
-        uint4 t;
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&t);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-        *reinterpret_cast<uint4*>(p) = t;
-    }
-};
-
-// One input column (wi) of the three rows a strip reads: the vectors of
-// rows inside the image and of a column inside it; the rest are never read.
-template <typename T>
-__device__ __forceinline__ void load_column(const T* const* rows, const bool* row_ok, int wi,
-                                            int W, int C, typename Vec<T>::Raw (&col)[3]) {
-    if (wi < 0 || wi >= W) return;
-#pragma unroll
-    for (int di = 0; di < 3; ++di)
-        if (row_ok[di]) col[di] = Vec<T>::load(rows[di] + (int64_t)wi * C);
-}
+// ---- route 1: channel vectors (Vec, load_column: common.cuh) -------------
 
 // Grid: x over strips (n, ho, strip of TW wo) in a grid-stride loop,
 // threadIdx.y the strip lane; y over tiles of VEC_TILE channel vectors,
@@ -310,8 +255,6 @@ cudaError_t launch_vec(const T* x, const float* w, T* y, int N, int H, int W, in
         default: return cudaErrorInvalidValue;
     }
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* w, void* y, int N, int H, int W,

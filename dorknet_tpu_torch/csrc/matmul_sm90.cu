@@ -379,8 +379,6 @@ cudaError_t tc_launch(const CUtensorMap& map_a, const CUtensorMap& map_b, void* 
     return cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 }  // namespace
 
 // The tensor-core route of dorknet_matmul (matmul.cu): a and b bf16,

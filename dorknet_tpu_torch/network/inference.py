@@ -3,14 +3,23 @@
 
 Every dispatch runs one fixed batch shape: ragged tails are padded with
 zeros and sliced off, so each kernel sees the same shapes on every call. The
-network is moved to the runner's device once (the card unless the caller
-asks for the CPU); each batch is copied there, run under
-``torch.inference_mode()``, and the probabilities come back as numpy.
-BN folding, ``predict_iter`` and program export come with a later slice.
+runner serves a snapshot, as the JAX runner means to (it gathers parameters
+and states at construction and again in ``refresh()``): its own copy of the
+caller's network on the runner's device (the card unless the caller asks
+for the CPU), which training the caller's network does not change until
+``refresh()``. The
+caller's network stays where it was and as it was. Each batch is copied to
+the device, run under ``torch.inference_mode()``, and the probabilities come
+back as numpy. BN folding, ``predict_iter`` and program export come with a
+later slice.
 """
+
+import copy
 
 import numpy as np
 import torch
+
+from dorknet_tpu_torch.layers.base import Layer
 
 
 def resolve_device(device, who):
@@ -24,17 +33,40 @@ def resolve_device(device, who):
     return device
 
 
+def _snapshot(network, device):
+    """A copy of ``network`` on ``device``, without the gradients its last
+    training forward left (they are not served). ``network`` is unchanged."""
+    memo = {id(l.grads): {} for l in network.modules() if isinstance(l, Layer)}
+    if network._pending_grads is not None:
+        memo[id(network._pending_grads)] = None
+    return copy.deepcopy(network, memo).to(device)
+
+
 class InferenceRunner:
     def __init__(self, network, batch_size, device="cuda", fold_bn=False):
-        """device: where the network runs, the card by default. The network
-        is moved there in place."""
+        """device: where the runner serves, the card by default. It serves
+        its own copy of ``network`` there (``self.network``); ``network``
+        itself is kept as the source of ``refresh()``."""
         if fold_bn:
             raise NotImplementedError(
                 "fold_bn is not ported yet; build the runner with fold_bn=False")
         network._require_bn_initialized("InferenceRunner")
         self.device = resolve_device(device, "InferenceRunner")
-        self.network = network.to(self.device)
+        self._source = network
+        self.network = _snapshot(network, self.device)
         self.batch_size = int(batch_size)
+
+    def refresh(self):
+        """Copy the source network's current parameters and batch-norm
+        running statistics into the served copy, in place (no second copy
+        is allocated on the device): the counterpart of the JAX runner's
+        re-gathering after further training of the source."""
+        pairs = [(self.network.parameters(), self._source.parameters()),
+                 (self.network.buffers(), self._source.buffers())]
+        with torch.no_grad():
+            for served, source in pairs:
+                for dst, src in zip(served, source, strict=True):
+                    dst.copy_(src)
 
     def _run_fixed(self, X):
         """One dispatch of a (batch_size, C, H, W) float32 numpy batch."""

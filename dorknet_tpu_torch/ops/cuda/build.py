@@ -66,10 +66,10 @@ def _bind(lib):
                                              ci, ci, ci, vp, ci]
     lib.dorknet_depthwise3x3_fwd.restype = ci
     lib.dorknet_depthwise3x3_dx.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
-                                            ci, vp, ci]
+                                            ci, ci, ci, vp, ci]
     lib.dorknet_depthwise3x3_dx.restype = ci
     lib.dorknet_depthwise3x3_dw.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                            ci, ci, ci, vp, ci]
+                                            ci, ci, ci, ci, vp, ci]
     lib.dorknet_depthwise3x3_dw.restype = ci
     lib.dorknet_augment_planes.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                            ctypes.c_float, ci, vp, ci]

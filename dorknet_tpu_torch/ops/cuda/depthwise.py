@@ -17,11 +17,23 @@ Nothing sends a CUDA tensor to a plain version. ``Depthwise3x3Fn`` joins the
 three for autograd, and ``depthwise3x3`` goes through it whenever a gradient
 is needed. Each wrapper counts the launches of its kernel in ``.launches``.
 
-The forward has two routes, chosen by shape before the launch
-(``_dw_route``): ``"vector"``, 16-byte vectors of channels (4 fp32 or 8
-bf16) in strips of ``dw_strip`` outputs, when C is a multiple of that and x
-is 16-byte aligned; ``"scalar"``, one thread per element, otherwise. Both
-give bit-equal results; ``depthwise3x3.launches_by_route`` counts each.
+Each kernel has two routes, chosen by shape and alignment before the
+launch, and each wrapper counts its launches per route in
+``.launches_by_route``:
+
+- the forward (``_dw_route``) and dx (``_dx_route``): ``"vector"``, 16-byte
+  vectors of channels (4 fp32 or 8 bf16) in strips of ``dw_strip`` outputs,
+  when C is a multiple of that and the activation read is 16-byte aligned;
+  ``"scalar"``, one thread per element, otherwise. The two routes give
+  bit-equal results.
+- dw (``_dwgrad_route``): ``"vector"``, 4 channels a thread (16 bytes fp32,
+  8 bytes bf16) walking strips of outputs over ``dw_vec_bands`` bands, when
+  C is a multiple of 4 and x and g are aligned to 4 channels; ``"scalar"``
+  over ``dw_bands`` bands otherwise. They sum in different orders; each is
+  bit-equal to itself on repeat, and both are held to the plain version.
+
+``launch_forward``, ``launch_dx`` and ``launch_dw`` run a given route, for
+A/Bs on the same inputs.
 """
 
 import torch
@@ -31,9 +43,17 @@ from dorknet_tpu_torch.ops.cuda.build import check, load_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# dw pass 1 aims at this many blocks per SM (see csrc/depthwise3x3_bwd.cu)
+# dw pass 1 aims at this many blocks per SM (see csrc/depthwise3x3_bwd.cu):
+# the scalar route's blocks of 256 threads, the vector route's of 128 (one
+# wave at about 120 registers a thread; fewer or more were slower in an A/B
+# on an H100)
 _DW_BLOCKS_PER_SM = 8
-FWD_ROUTES = ("scalar", "vector")  # their codes at the C entry point: 0, 1
+_DW_VEC_BLOCKS_PER_SM = 4
+_DW_VEC_TW = 8  # outputs wo of a dw vector strip (DWV_TW in the kernel)
+_DW_VEC_ROWS = {torch.float32: 1, torch.bfloat16: 2}  # its output rows (DwVec::TH)
+_DW_VEC_CHANNELS = 4  # channels of a dw vector thread (DwVec::V)
+_VEC_THREADS, _VEC_TILE = 128, 32  # a vector block's threads, its channel vectors at most
+ROUTES = ("scalar", "vector")  # their codes at the C entry points: 0, 1
 _VEC_BYTES = 16
 # the vector route's strip widths, widest first, and the threads per SM a
 # layer should still give the card. Wide strips win while each SM keeps a
@@ -166,24 +186,51 @@ def _vec_channels(dtype):
 
 
 def _dw_route(x):
-    """The forward's route for x (N,H,W,C): ``"vector"`` when C is a
-    multiple of a 16-byte vector of channels and x is 16-byte aligned (the
-    wrapper allocates y aligned), else ``"scalar"``."""
+    """The forward's route for x (N,H,W,C), and dx's for g (``_dx_route``):
+    ``"vector"`` when C is a multiple of a 16-byte vector of channels and
+    the activation read is 16-byte aligned (the wrapper allocates the output
+    aligned), else ``"scalar"``."""
     if x.shape[3] % _vec_channels(x.dtype) == 0 and x.data_ptr() % _VEC_BYTES == 0:
         return "vector"
     return "scalar"
 
 
+# dx reads g and writes dx as the forward reads x and writes y
+_dx_route = _dw_route
+
+
+def _dwgrad_route(x, g):
+    """dw's route for x (N,H,W,C) and g (N,Ho,Wo,C): ``"vector"`` when C is
+    a multiple of 4 and both are aligned to 4 channels (16 bytes fp32, 8
+    bytes bf16), else ``"scalar"``. ``g`` may be an offset view (autograd's
+    ``contiguous()``), so both pointers are checked."""
+    nbytes = _DW_VEC_CHANNELS * x.element_size()
+    if (x.shape[3] % _DW_VEC_CHANNELS == 0 and x.data_ptr() % nbytes == 0
+            and g.data_ptr() % nbytes == 0):
+        return "vector"
+    return "scalar"
+
+
+def _check_route(route):
+    if route not in ROUTES:
+        raise ValueError("depthwise3x3: route must be one of {}, got {!r}".format(ROUTES, route))
+
+
 def dw_strip(N, Ho, Wo, vectors, sms):
-    """The vector route's strip: the widest of 8, 4, 2 outputs along W
-    that still gives at least ``_THREADS_PER_SM`` threads (one per output
-    strip and channel vector) per SM, else 1. Each thread keeps the taps
-    of its strip in registers, so wider strips read each input once; the
-    floor keeps small layers (small batches) spread over the SMs."""
+    """The vector route's strip, for the forward (output N, Ho, Wo) and for
+    dx (output N, H, W): the widest of 8, 4, 2 outputs along W that still
+    gives at least ``_THREADS_PER_SM`` threads (one per output strip and
+    channel vector) per SM, else 1. Each thread keeps the taps of its strip
+    in registers, so wider strips read each input once; the floor keeps
+    small layers (small batches) spread over the SMs."""
     for tw in _STRIPS[:-1]:
         if N * Ho * -(-Wo // tw) * vectors >= _THREADS_PER_SM * sms:
             return tw
     return _STRIPS[-1]
+
+
+def _sms(t):
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def launch_forward(x, w, stride, route, tw=None):
@@ -192,6 +239,7 @@ def launch_forward(x, w, stride, route, tw=None):
     takes ``_dw_route(x)``; this launcher also serves to hold one route
     against the other on the same inputs. The C side refuses a route or a
     strip the input cannot take."""
+    _check_route(route)
     _require_cuda(x)
     N, H, W, C = x.shape
     Ho, Wo = _out_hw(H, W, stride)
@@ -201,12 +249,11 @@ def launch_forward(x, w, stride, route, tw=None):
     if tw is None:
         tw = 1
         if route == "vector":
-            sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-            tw = dw_strip(N, Ho, Wo, C // _vec_channels(x.dtype), sms)
+            tw = dw_strip(N, Ho, Wo, C // _vec_channels(x.dtype), _sms(x))
     kernels = load_library()
     err = kernels.lib.dorknet_depthwise3x3_fwd(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), N, H, W, C, stride,
-        _DTYPE_CODE[x.dtype], FWD_ROUTES.index(route), tw, _stream(x), x.device.index)
+        _DTYPE_CODE[x.dtype], ROUTES.index(route), tw, _stream(x), x.device.index)
     check(kernels.lib, err, "depthwise3x3 launch ({} route)".format(route))
     depthwise3x3.launches += 1
     depthwise3x3.launches_by_route[route] += 1
@@ -221,6 +268,31 @@ def _forward(x, w, stride):
     return launch_forward(x, w, stride, _dw_route(x))
 
 
+def launch_dx(g, w, stride, H, W, route, tw=None):
+    """The dx kernel of ``route`` on CUDA tensors (g and w already checked);
+    ``tw`` overrides the vector route's strip (``dw_strip`` over dx's N, H,
+    W by default). ``depthwise3x3_dx`` takes ``_dx_route(g)``. The C side
+    refuses a route or a strip the input cannot take."""
+    _check_route(route)
+    _require_cuda(g)
+    N, _, _, C = g.shape
+    dx = torch.empty((N, H, W, C), dtype=g.dtype, device=g.device)
+    if dx.numel() == 0:
+        return dx
+    if tw is None:
+        tw = 1
+        if route == "vector":
+            tw = dw_strip(N, H, W, C // _vec_channels(g.dtype), _sms(g))
+    kernels = load_library()
+    err = kernels.lib.dorknet_depthwise3x3_dx(
+        g.data_ptr(), w.data_ptr(), dx.data_ptr(), N, H, W, C, stride,
+        _DTYPE_CODE[g.dtype], ROUTES.index(route), tw, _stream(g), g.device.index)
+    check(kernels.lib, err, "depthwise3x3_dx launch ({} route)".format(route))
+    depthwise3x3_dx.launches += 1
+    depthwise3x3_dx.launches_by_route[route] += 1
+    return dx
+
+
 def depthwise3x3_dx(g, w, stride, H, W):
     """Gradient of x. g: (N,Ho,Wo,C) contiguous, float32 or bfloat16;
     w: (C,3,3) float32; (H, W) the forward input's size. Returns (N,H,W,C)
@@ -232,26 +304,61 @@ def depthwise3x3_dx(g, w, stride, H, W):
     _validate_grad(g, (N, H, W, C), g.dtype, g.device, stride)
     if g.device.type == "cpu":
         return depthwise3x3_dx_plain(g, w, stride, H, W)
-    _require_cuda(g)
-    dx = torch.empty((N, H, W, C), dtype=g.dtype, device=g.device)
-    if dx.numel() == 0:
-        return dx
-    kernels = load_library()
-    err = kernels.lib.dorknet_depthwise3x3_dx(
-        g.data_ptr(), w.data_ptr(), dx.data_ptr(), N, H, W, C, stride,
-        _DTYPE_CODE[g.dtype], _stream(g), g.device.index)
-    check(kernels.lib, err, "depthwise3x3_dx launch")
-    depthwise3x3_dx.launches += 1
-    return dx
+    return launch_dx(g, w, stride, H, W, _dx_route(g))
 
 
 def dw_bands(N, Ho, Wo, C, sms):
-    """How many bands of the N*Ho*Wo output pixels dw's first pass splits the
-    reduction into: about ``_DW_BLOCKS_PER_SM`` blocks per SM over the
+    """How many bands of the N*Ho*Wo output pixels dw's scalar route splits
+    the reduction into: about ``_DW_BLOCKS_PER_SM`` blocks per SM over the
     channel tiles, at least 64 pixels a band, at most 65535 bands."""
     tiles = -(-C // 32)
     want = -(-_DW_BLOCKS_PER_SM * sms // tiles)
     return max(1, min(want, -(-N * Ho * Wo // 64), 65535))
+
+
+def dw_vec_bands(N, Ho, Wo, C, sms, rows=1):
+    """How many bands dw's vector route splits its strips into, a strip
+    being ``rows`` output rows (``_DW_VEC_ROWS`` of the dtype) by
+    ``_DW_VEC_TW`` outputs: about ``_DW_VEC_BLOCKS_PER_SM`` blocks per SM
+    over the channel tiles (a block holds at most 32 threads of 4 channels
+    each, and 128 threads), at least one strip for each of a block's lanes,
+    at most 65535 bands. Fewer bands also mean fewer partials for pass 2."""
+    vectors = C // _DW_VEC_CHANNELS
+    tile = min(vectors, _VEC_TILE)
+    lanes = _VEC_THREADS // tile
+    tiles = -(-vectors // tile)
+    strips = N * -(-Ho // rows) * -(-Wo // _DW_VEC_TW)
+    want = -(-_DW_VEC_BLOCKS_PER_SM * sms // tiles)
+    return max(1, min(want, strips // lanes, 65535))
+
+
+def launch_dw(x, g, stride, route):
+    """The dw kernels of ``route`` on CUDA tensors (x and g already
+    checked), over the route's bands (``dw_vec_bands`` or ``dw_bands``).
+    ``depthwise3x3_dw`` takes ``_dwgrad_route(x, g)``; this launcher also
+    serves to hold one route against the other on the same inputs. The C
+    side refuses a route the input cannot take."""
+    _check_route(route)
+    _require_cuda(x)
+    N, H, W, C = x.shape
+    Ho, Wo = _out_hw(H, W, stride)
+    if g.numel() == 0:
+        return torch.zeros((C, 3, 3), dtype=torch.float32, device=x.device)
+    if route == "vector":
+        bands = dw_vec_bands(N, Ho, Wo, C, _sms(x), _DW_VEC_ROWS[x.dtype])
+    else:
+        bands = dw_bands(N, Ho, Wo, C, _sms(x))
+    partials = torch.empty((bands, 9, C), dtype=torch.float32, device=x.device)
+    dw = torch.empty((C, 3, 3), dtype=torch.float32, device=x.device)
+    kernels = load_library()
+    err = kernels.lib.dorknet_depthwise3x3_dw(
+        x.data_ptr(), g.data_ptr(), partials.data_ptr(), dw.data_ptr(),
+        N, H, W, C, stride, bands, _DTYPE_CODE[x.dtype], ROUTES.index(route), _stream(x),
+        x.device.index)
+    check(kernels.lib, err, "depthwise3x3_dw launch ({} route)".format(route))
+    depthwise3x3_dw.launches += 1
+    depthwise3x3_dw.launches_by_route[route] += 1
+    return dw
 
 
 def depthwise3x3_dw(x, g, stride):
@@ -264,22 +371,7 @@ def depthwise3x3_dw(x, g, stride):
     _validate_grad(g, tuple(x.shape), x.dtype, x.device, stride)
     if x.device.type == "cpu":
         return depthwise3x3_dw_plain(x, g, stride)
-    _require_cuda(x)
-    N, H, W, C = x.shape
-    Ho, Wo = _out_hw(H, W, stride)
-    if g.numel() == 0:
-        return torch.zeros((C, 3, 3), dtype=torch.float32, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    P = dw_bands(N, Ho, Wo, C, sms)
-    partials = torch.empty((P, 9, C), dtype=torch.float32, device=x.device)
-    dw = torch.empty((C, 3, 3), dtype=torch.float32, device=x.device)
-    kernels = load_library()
-    err = kernels.lib.dorknet_depthwise3x3_dw(
-        x.data_ptr(), g.data_ptr(), partials.data_ptr(), dw.data_ptr(),
-        N, H, W, C, stride, P, _DTYPE_CODE[x.dtype], _stream(x), x.device.index)
-    check(kernels.lib, err, "depthwise3x3_dw launch")
-    depthwise3x3_dw.launches += 1
-    return dw
+    return launch_dw(x, g, stride, _dwgrad_route(x, g))
 
 
 class Depthwise3x3Fn(torch.autograd.Function):
@@ -325,6 +417,8 @@ def depthwise3x3(x, w, stride=1):
 
 
 depthwise3x3.launches = 0
-depthwise3x3.launches_by_route = dict.fromkeys(FWD_ROUTES, 0)
+depthwise3x3.launches_by_route = dict.fromkeys(ROUTES, 0)
 depthwise3x3_dx.launches = 0
+depthwise3x3_dx.launches_by_route = dict.fromkeys(ROUTES, 0)
 depthwise3x3_dw.launches = 0
+depthwise3x3_dw.launches_by_route = dict.fromkeys(ROUTES, 0)

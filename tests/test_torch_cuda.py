@@ -18,8 +18,9 @@ from dorknet_tpu_torch.ops.cuda.augment import augment_planes_fused  # noqa: E40
 from dorknet_tpu_torch.ops.cuda.bn_stats import (  # noqa: E402
     batch_norm_stats, batch_norm_stats_plain)
 from dorknet_tpu_torch.ops.cuda.depthwise import (  # noqa: E402
-    _dw_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain, depthwise3x3_dx,
-    depthwise3x3_dx_plain, depthwise3x3_plain, launch_forward)
+    _dw_route, _dwgrad_route, _dx_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain,
+    depthwise3x3_dx, depthwise3x3_dx_plain, depthwise3x3_plain, launch_dw, launch_dx,
+    launch_forward)
 from dorknet_tpu_torch.ops.cuda.matmul import (  # noqa: E402
     _gemm_route, launch_matmul, matmul, matmul_bn_stats, matmul_bn_stats_plain, matmul_plain)
 from dorknet_tpu_torch.optimisers import SGDMomentum  # noqa: E402
@@ -143,7 +144,8 @@ def test_trainer_step_on_card_matches_cpu(cuda):
     0.9) at batch 4 at the flagship's 225 px on the card and on the CPU
     (fp32, TF32 off): per-step loss within 1e-4 relative, parameters within
     1e-4 relative / 1e-5 absolute, and every step launched the forward, dx
-    and dw kernels 16 times each. Why this configuration: the fresh weights
+    and dw kernels 16 times each, all on their channel-vector routes. Why
+    this configuration: the fresh weights
     are 0.01-scale and each BN divides by a small sigma, so the stem's
     gradients are large; without the clip one step moves those weights by
     about their own size, and the 1e-3-relative fp32 differences between
@@ -162,11 +164,14 @@ def test_trainer_step_on_card_matches_cpu(cuda):
         X = rng.randn(4, 3, 225, 225).astype(np.float32)
         y = np.eye(120, dtype=np.float32)[rng.randint(0, 120, 4)]
         want, _ = t_cpu.step(X, y)
-        counts = (depthwise3x3.launches, depthwise3x3_dx.launches, depthwise3x3_dw.launches)
+        kernels = (depthwise3x3, depthwise3x3_dx, depthwise3x3_dw)
+        counts = [k.launches for k in kernels]
+        routes = [dict(k.launches_by_route) for k in kernels]
         got, _ = t_gpu.step(X, y)
         torch.cuda.synchronize()
-        assert (depthwise3x3.launches, depthwise3x3_dx.launches,
-                depthwise3x3_dw.launches) == tuple(n + 16 for n in counts)
+        assert [k.launches for k in kernels] == [n + 16 for n in counts]
+        assert [dict(k.launches_by_route) for k in kernels] == [
+            {"scalar": r["scalar"], "vector": r["vector"] + 16} for r in routes]
         assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))
     for a, b in zip(net_gpu.parameters(), net_cpu.parameters(), strict=True):
         np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().numpy(),
@@ -517,3 +522,72 @@ def test_depthwise_entry_point_refuses_what_the_vector_route_cannot_take(cuda):
     assert depthwise3x3.launches_by_route == before
     assert _dw_route(x) == "scalar"
     assert torch.equal(depthwise3x3(x, w, 1), launch_forward(x, w, 1, "scalar"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,W,C,stride", DW_VEC_CASES)
+def test_vector_dx_matches_scalar_and_plain(cuda, N, H, W, C, stride, dtype):
+    """dx's vector route at every strip width is bit-equal to its scalar
+    route (same fmaf per tap, same order), and within dx's limits of the
+    plain version."""
+    _, g, w = _bwd_inputs(cuda, N, H, W, C, stride, dtype)
+    assert _dx_route(g) == "vector"
+    before = dict(depthwise3x3_dx.launches_by_route)
+    dx = depthwise3x3_dx(g, w, stride, H, W)
+    dxs = launch_dx(g, w, stride, H, W, "scalar")
+    strips = [launch_dx(g, w, stride, H, W, "vector", tw) for tw in (1, 2, 4, 8)]
+    ref = depthwise3x3_dx_plain(g, w, stride, H, W)
+    torch.cuda.synchronize()
+    assert depthwise3x3_dx.launches_by_route == {"scalar": before["scalar"] + 1,
+                                                 "vector": before["vector"] + 5}
+    assert all(torch.equal(v, dxs) for v in [dx] + strips)
+    tol = 1e-5 * float(ref.float().abs().max()) + 1e-6 if dtype == torch.float32 else 0.0
+    assert float((dx.float() - ref.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,W,C,stride", DW_VEC_CASES + [(2, 9, 9, 12, 2)])
+def test_vector_dw_matches_plain_and_repeats(cuda, N, H, W, C, stride, dtype):
+    """dw's vector route within 2e-5 of sum|x*g| per tap and channel of the
+    plain version (fp32 sums in another order), twice bit-equal; the scalar
+    route on the same inputs too."""
+    x, g, _ = _bwd_inputs(cuda, N, H, W, C, stride, dtype)
+    assert _dwgrad_route(x, g) == "vector"
+    before = dict(depthwise3x3_dw.launches_by_route)
+    dw = depthwise3x3_dw(x, g, stride)
+    again = launch_dw(x, g, stride, "vector")
+    dws = launch_dw(x, g, stride, "scalar")
+    ref = depthwise3x3_dw_plain(x, g, stride)
+    limit = 2e-5 * depthwise3x3_dw_plain(x.float().abs(), g.float().abs(), stride) + 1e-6
+    torch.cuda.synchronize()
+    assert depthwise3x3_dw.launches_by_route == {"scalar": before["scalar"] + 1,
+                                                 "vector": before["vector"] + 2}
+    assert torch.equal(dw, again)
+    for got in (dw, dws):
+        assert got.dtype == torch.float32 and got.shape == (C, 3, 3)
+        assert bool(((got - ref).abs() <= limit).all())
+
+
+def test_gradient_entry_points_refuse_what_the_vector_routes_cannot_take(cuda):
+    """Asked for the vector route, the C side refuses C = 6, misaligned
+    views and a strip of 3 for dx, and C = 6 and misaligned views for dw;
+    nothing launches. The scalar routes take them all."""
+    before = [dict(k.launches_by_route) for k in (depthwise3x3_dx, depthwise3x3_dw)]
+    x6, g6, w6 = _bwd_inputs(cuda, 1, 4, 4, 6, 1, torch.float32)
+    x8, g8, w8 = _bwd_inputs(cuda, 1, 4, 4, 8, 1, torch.bfloat16)
+    # contiguous views 8 and 4 bytes into their storage, with g8's and x8's values
+    g_off = torch.zeros(g8.numel() + 4, dtype=g8.dtype, device=cuda)[4:].view(g8.shape)
+    x_off = torch.zeros(x8.numel() + 2, dtype=x8.dtype, device=cuda)[2:].view(x8.shape)
+    g_off.copy_(g8)
+    x_off.copy_(x8)
+    for g, w, tw in ((g6, w6, None), (g_off, w8, None), (g8, w8, 3)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            launch_dx(g, w, 1, 4, 4, "vector", tw)
+    g_odd = torch.zeros(g8.numel() + 1, dtype=g8.dtype, device=cuda)[1:].view(g8.shape)
+    for x, g in ((x6, g6), (x_off, g8), (x8, g_odd)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            launch_dw(x, g, 1, "vector")
+    assert [dict(k.launches_by_route) for k in (depthwise3x3_dx, depthwise3x3_dw)] == before
+    assert _dx_route(g_off) == "scalar" and _dwgrad_route(x_off, g8) == "scalar"
+    assert torch.equal(depthwise3x3_dx(g_off, w8, 1, 4, 4), launch_dx(g8, w8, 1, 4, 4, "scalar"))
+    assert torch.equal(depthwise3x3_dw(x6, g6, 1), launch_dw(x6, g6, 1, "scalar"))

@@ -1,7 +1,8 @@
 """The port's depthwise 3x3 backward (on CPU: the plain dx and dw versions,
 directly and through ``Depthwise3x3Fn``) against ``jax.vjp`` of the JAX
 package's Pallas kernel in interpret mode, finite differences in float64,
-and the wrappers' argument checks.
+the wrappers' argument checks, and the kernels' routes, strip and band rules
+by shape (what the card would launch).
 
 Tolerances, as the JAX package's own backward test
 (tests/test_pallas_kernels.py): dx rtol/atol 1e-4; dw rtol 1e-4, atol 1e-3
@@ -14,11 +15,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
 import dorknet_tpu.ops.pallas.depthwise as pdw  # noqa: E402
 
 import dorknet_tpu_torch.ops.cuda.depthwise as tdw  # noqa: E402
 from dorknet_tpu_torch.ops.cuda.depthwise import (  # noqa: E402
-    Depthwise3x3Fn, depthwise3x3, depthwise3x3_dw, depthwise3x3_dx, dw_bands)
+    Depthwise3x3Fn, _dwgrad_route, _dx_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dx,
+    dw_bands, dw_strip, dw_vec_bands, launch_dw, launch_dx)
 
 
 @pytest.fixture(autouse=True)
@@ -133,14 +136,18 @@ def test_backward_wrappers_reject_bad_arguments():
         depthwise3x3_dw(x, g[:1].contiguous(), 2)
 
 
-def test_cpu_backward_counts_no_launch():
-    before = (depthwise3x3.launches, depthwise3x3_dx.launches, depthwise3x3_dw.launches)
-    x = torch.randn(1, 5, 5, 3, requires_grad=True)
-    w = torch.randn(3, 3, 3, requires_grad=True)
-    depthwise3x3(x, w, 1).sum().backward()
+@pytest.mark.parametrize("C,stride", [(3, 1), (8, 2)])
+def test_cpu_backward_counts_no_launch(C, stride):
+    """Neither the launch counts nor the per-route counts (both routes
+    listed) move on the CPU, whatever route the card would take."""
+    kernels = (depthwise3x3, depthwise3x3_dx, depthwise3x3_dw)
+    before = [(k.launches, dict(k.launches_by_route)) for k in kernels]
+    x = torch.randn(1, 6, 6, C, requires_grad=True)
+    w = torch.randn(C, 3, 3, requires_grad=True)
+    depthwise3x3(x, w, stride).sum().backward()
     assert x.grad.shape == x.shape and w.grad.shape == w.shape
-    assert (depthwise3x3.launches, depthwise3x3_dx.launches,
-            depthwise3x3_dw.launches) == before
+    assert all(set(by) == {"scalar", "vector"} for _, by in before)
+    assert [(k.launches, dict(k.launches_by_route)) for k in kernels] == before
 
 
 @pytest.mark.parametrize("N,Ho,C,sms,want", [
@@ -151,3 +158,103 @@ def test_cpu_backward_counts_no_launch():
 ])
 def test_dw_bands(N, Ho, C, sms, want):
     assert dw_bands(N, Ho, Ho, C, sms) == want
+
+
+def _act(shape, dtype, offset=0):
+    """A contiguous NHWC CPU tensor starting ``offset`` elements into its
+    storage (torch.empty: the routes read the shape, type and pointer)."""
+    n = int(np.prod(shape))
+    return torch.empty(n + offset, dtype=dtype)[offset:].view(*shape)
+
+
+FLAGSHIP = [(H, C, s) for H, C, s, _ in chip_smoke.FLAGSHIP_DW]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,C,stride", FLAGSHIP + list(chip_smoke.ODD_DW))
+def test_flagship_gradients_take_the_vector_routes(H, C, stride, dtype):
+    """Every flagship depthwise layer at batch 64, and the odd 9x9x24: dx
+    and dw on their channel-vector routes, in fp32 and bf16."""
+    Ho = (H - 1) // stride + 1
+    x, g = _act((64, H, H, C), dtype), _act((64, Ho, Ho, C), dtype)
+    assert _dx_route(g) == "vector"
+    assert _dwgrad_route(x, g) == "vector"
+
+
+@pytest.mark.parametrize("C,dtype,x_off,g_off,dx_want,dw_want", [
+    (6, torch.float32, 0, 0, "scalar", "scalar"),     # C not a multiple of 4
+    (6, torch.bfloat16, 0, 0, "scalar", "scalar"),
+    (3, torch.float32, 0, 0, "scalar", "scalar"),
+    (12, torch.bfloat16, 0, 0, "scalar", "vector"),   # dx wants 8 bf16, dw 4
+    (12, torch.float32, 0, 0, "vector", "vector"),
+    (64, torch.float32, 0, 1, "scalar", "scalar"),    # g 4 bytes off
+    (64, torch.float32, 1, 0, "vector", "scalar"),    # x off: dx reads only g
+    (64, torch.bfloat16, 0, 4, "scalar", "vector"),   # g 8 bytes off: dw's 4 bf16 load
+    (64, torch.bfloat16, 2, 0, "vector", "scalar"),   # x 4 bytes off
+    (64, torch.bfloat16, 0, 1, "scalar", "scalar"),   # g 2 bytes off
+])
+def test_gradient_routes_by_shape_and_alignment(C, dtype, x_off, g_off, dx_want, dw_want):
+    """dx takes the forward's rule on g (16-byte vectors: 4 fp32 or 8 bf16,
+    g 16-byte aligned); dw takes 4 channels a thread (x and g aligned to 16
+    bytes in fp32, 8 in bf16), checked on both pointers, since autograd's
+    g.contiguous() may be an offset view."""
+    x, g = _act((2, 9, 9, C), dtype, x_off), _act((2, 9, 9, C), dtype, g_off)
+    assert _dx_route(g) == dx_want
+    assert _dwgrad_route(x, g) == dw_want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,C,stride", FLAGSHIP)
+def test_dx_strip_at_the_flagship(H, C, stride, dtype):
+    """dx's strip is ``dw_strip`` over dx's own (N, H, W): 8 at every
+    flagship layer at batch 64 on an H100's 132 SMs, in fp32 and bf16, and
+    the strips still give the card at least 128 threads an SM."""
+    vectors = C // (4 if dtype == torch.float32 else 8)
+    tw = dw_strip(64, H, H, vectors, 132)
+    assert tw == 8
+    assert 64 * H * -(-H // tw) * vectors >= 128 * 132
+
+
+@pytest.mark.parametrize("N,H,C,stride,rows,want", [
+    (64, 56, 64, 1, 1, 528),   # 1 tile of 16 vectors, 8 lanes: 4 blocks an SM
+    (64, 28, 128, 1, 1, 528),
+    (64, 14, 256, 1, 1, 264),  # 2 tiles
+    (64, 7, 512, 1, 1, 112),   # 4 tiles; 448 strips, 4 lanes: one strip a lane
+    (64, 56, 64, 2, 1, 528),
+    (64, 28, 128, 2, 1, 448),  # 1,792 strips over 4 lanes
+    (64, 14, 256, 2, 1, 112),
+    (4, 9, 24, 1, 1, 3),       # 6 vectors, 21 lanes, 72 strips
+    (1, 1, 4, 1, 1, 1),
+    # bf16: strips of two output rows
+    (64, 56, 64, 1, 2, 528),
+    (64, 14, 256, 1, 2, 224),  # 896 strips over 4 lanes
+    (64, 7, 512, 1, 2, 64),    # 256 strips
+    (64, 14, 256, 2, 2, 64),
+])
+def test_dw_vec_bands(N, H, C, stride, rows, want):
+    """dw's vector route: about 4 blocks of 128 threads an SM (132 SMs),
+    but every lane of a block walks at least one strip of ``rows`` by 8
+    outputs."""
+    Ho = (H - 1) // stride + 1
+    P = dw_vec_bands(N, Ho, Ho, C, 132, rows)
+    assert P == want
+    vectors = C // 4
+    tile = min(vectors, 32)
+    lanes = 128 // tile
+    strips = N * -(-Ho // rows) * -(-Ho // 8)
+    assert P == 1 or strips // P >= lanes
+    assert P * -(-vectors // tile) <= 4 * 132 + -(-vectors // tile)
+
+
+def test_launchers_check_route_and_device():
+    """launch_dx and launch_dw take the route by name and run on CUDA
+    tensors only; the public wrappers never hand them a CPU tensor."""
+    g, w, x = torch.randn(2, 4, 4, 8), torch.randn(8, 3, 3), torch.randn(2, 8, 8, 8)
+    with pytest.raises(ValueError, match="route"):
+        launch_dx(g, w, 2, 8, 8, "diagonal")
+    with pytest.raises(ValueError, match="route"):
+        launch_dw(x, g, 2, "fused")
+    with pytest.raises(ValueError, match="unsupported device"):
+        launch_dx(g, w, 2, 8, 8, "vector")
+    with pytest.raises(ValueError, match="unsupported device"):
+        launch_dw(x, g, 2, "scalar")
