@@ -12,7 +12,8 @@ Phases (each checks its results; any failure ends the run non-zero with no
 
 1. build: compile the hand-written CUDA kernels from ``dorknet_tpu_torch/csrc``
    with nvcc (sm_90a), print the card's name and power limit and each
-   kernel's registers and spills (``ptxas -v``), and require ``HGMMA``
+   kernel's registers and spills (``ptxas -v``; the pipelined GEMM's three
+   tiles and the augmentation's band kernels among them), and require ``HGMMA``
    (wgmma) in the SASS of every tensor-core GEMM kernel (``cuobjdump -sass``);
 2. kernel vs plain: ``depthwise3x3`` against its plain PyTorch version on the
    card at the flagship's seven depthwise shapes at batch 64, an odd 9x9x24
@@ -57,12 +58,16 @@ Phases (each checks its results; any failure ends the run non-zero with no
    old), cuDNN's dx and dw alone and dx at each strip width, fp32 and bf16;
    ``Trainer.step`` at batch 64 in fp32 and in bf16 flow; a
    ``torch.profiler`` breakdown of the fp32 step by kernel class;
-9. augmentation kernel vs plain: ``augment_planes_fused`` against its plain
-   PyTorch version on the card at the flagship's batch (60 precrops of
-   281x281 uint8 -> 225x225) in six configurations (crop random or center,
-   with and without HSV and rotation, crop only, no crop); no pixel more
-   than 1 step off and at most 0.01% off, two runs bit-equal; times of the
-   kernel and the plain version;
+9. augmentation kernel vs plain: ``augment_planes_fused`` (the band route)
+   against its plain PyTorch version on the card at the flagship's batch (60
+   precrops of 281x281 uint8 -> 225x225) in six configurations (crop random
+   or center, with and without HSV and rotation, crop only, no crop) and at
+   100x100 with a margin P = 35 (>= 33) whose table holds angles to +-90
+   degrees (the second shear of a bottom band reads the top rows): bit-equal
+   to the plain version and to the plane route, two runs bit-equal; at the
+   flagship configuration the band and plane routes in turns (events and
+   device time), the band route's tile sizes, the plain version and the
+   bound;
 10. the augmented training slice: a synthetic packed directory (2,048
     images of 281x281, 120 classes) uploaded by ``DeviceResidentDataset``
     in 64 MB chunks, with the peak device memory held to the dataset plus
@@ -80,12 +85,17 @@ Phases (each checks its results; any failure ends the run non-zero with no
     augmented step;
 11. GEMM: ``matmul`` and ``matmul_bn_stats`` against their plain versions
     at the flagship's 20 pointwise GEMMs and its dense head at batch 64 in
-    fp32 (the CUDA-core route), the BN-fusion A/B's two shapes in bf16 (y in
-    bf16 and in fp32) and the JAX package's test shapes in fp32 and bf16
-    (every bf16 case on the tensor-core route); two ``matmul_bn_stats`` runs
-    bit-equal; each timed against its plain version and cuBLAS; at the A/B's
-    shapes both routes in turns (events and device time), against their
-    bounds and ``torch.mm(out_dtype=float32)`` / ``torch.matmul`` in bf16;
+    fp32 (every one on the pipelined CUDA-core route, y bit-equal to the
+    classic ``cuda_core`` route's), the BN-fusion A/B's two shapes in bf16
+    (y in bf16 and in fp32) and the JAX package's test shapes in fp32 (the
+    pipelined route) and bf16 (the tensor-core route); two
+    ``matmul_bn_stats`` runs bit-equal; each timed against its plain version
+    and cuBLAS; at each fp32 flagship shape the pipelined and classic routes'
+    device time in turns (old, new, new, old) beside cuBLAS's and each of
+    the pipelined route's three tiles, summed over the 21 GEMMs with their
+    bound shares; at the A/B's shapes both bf16
+    routes in turns (events and device time), against their bounds and
+    ``torch.mm(out_dtype=float32)`` / ``torch.matmul`` in bf16;
 12. the BN-fusion A/B (``dorknet_tpu_torch.utils.bn_fuse_ab.run``): the
     torch, fused and split variants' ms per shape (CUDA events) and their
     kernels' device time, its 2e-2 statistics gate, and the route its GEMMs
@@ -124,9 +134,10 @@ from dorknet_tpu_torch.data_loading import (DeviceResidentDataset, draw_batch_pa
 from dorknet_tpu_torch.layers.base import to_nhwc
 from dorknet_tpu_torch.models import ResNet18
 from dorknet_tpu_torch.network import BatchingServer, InferenceRunner, Trainer
+from dorknet_tpu_torch.ops.augment import shear_pad
 from dorknet_tpu_torch.ops.cuda.augment import (
-    _geometry, augment_param_table, augment_planes_fused, augment_planes_fused_plain,
-    launch_augment_kernel)
+    BAND_COLS, BAND_ROWS, _geometry, augment_param_table, augment_planes_fused,
+    augment_planes_fused_plain, launch_augment_kernel)
 from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats, batch_norm_stats_plain
 from dorknet_tpu_torch.ops.cuda.build import load_library
 from dorknet_tpu_torch.ops.cuda.depthwise import (
@@ -134,8 +145,8 @@ from dorknet_tpu_torch.ops.cuda.depthwise import (
     depthwise3x3_dx, depthwise3x3_dx_plain, depthwise3x3_plain, launch_dw, launch_dx,
     launch_forward)
 from dorknet_tpu_torch.ops.cuda.matmul import (
-    _gemm_route, launch_matmul, launch_matmul_bn_stats, matmul, matmul_bn_stats,
-    matmul_bn_stats_plain, matmul_plain)
+    PIPELINED_TILES, _gemm_route, _gemm_tile, launch_matmul, launch_matmul_bn_stats, matmul,
+    matmul_bn_stats, matmul_bn_stats_plain, matmul_plain)
 from dorknet_tpu_torch.optimisers import SGDMomentum
 from dorknet_tpu_torch.utils import bn_fuse_ab
 from dorknet_tpu_torch.utils.autotune import measure_device_ms
@@ -209,6 +220,8 @@ CHUNK_BYTES = 64 << 20
 # fp32 operations of the arithmetic in csrc/augment_planes.cu: a pixel's HSV
 # round trip, one lerp of a shear, and one line's shift
 AUG_HSV_OPS, AUG_LERP_OPS, AUG_SHIFT_OPS = 39, 7, 6
+# the band route's tiles (output rows, columns), timed against each other in phase 9
+AUG_BAND_TILES = [(29, 57), (32, 64), (38, 75), (45, 75), (57, 75), (45, 113)]
 
 
 _START = time.perf_counter()
@@ -330,7 +343,8 @@ def sass_hgmma(path):
     return len(funcs), sum("HGMMA" in f for f in funcs)
 
 
-_TEMPLATE_ARGS = [(r"13__nv_bfloat16", "bf16"), (r"Li(\d+)E", None), (r"f", "fp32"),
+_TEMPLATE_ARGS = [(r"13__nv_bfloat16", "bf16"), (r"Li(\d+)E", None),
+                  (r"Lb([01])E", None), (r"f", "fp32"),
                   (r"j", "u32"), (r"l", "i64"), (r"i", "int"), (r"b", "bool")]
 
 
@@ -386,8 +400,12 @@ def phase_build():
     log("card:", card_line())
     kernels = load_library()
     log("build: nvcc {:.2f} s -> {}".format(kernels.build_seconds, kernels.path))
-    for name, regs, spills in ptxas_report(kernels.compiler_log):
+    report = ptxas_report(kernels.compiler_log)
+    for name, regs, spills in report:
         log("ptxas: {:<48} {:>3} registers, {} bytes spilled".format(name, regs, spills))
+    for kernel in ("matmul_pipelined_kernel", "augment_band_kernel"):
+        require(any(name.startswith(kernel) for name, _, _ in report),
+                "no ptxas report of {}".format(kernel))
     n_tc, n_hgmma = sass_hgmma(kernels.path)
     log("  SASS: {} tensor-core GEMM kernels, {} with HGMMA".format(n_tc, n_hgmma))
     require(n_tc == 4 and n_hgmma == n_tc, "the tensor-core GEMM's SASS lacks HGMMA")
@@ -1129,50 +1147,88 @@ def augment_bound_ms(B, H, W, oh, ow, P, cropped):
     return max(t_bytes, t_ops) * 1e3, by, n_bytes
 
 
+def aug_case(x, cfg, seed, out_hw=AUG_OUT, P=None):
+    """(params, table, (oh, ow), hsv_on, P, flip_on) of one augmentation
+    configuration on batch x, with the margin P of its rotation range unless
+    P is given."""
+    B, H, W = x.shape[:3]
+    params = draw_batch_params(torch.Generator(device=DEVICE).manual_seed(seed), B, (H, W),
+                               out_hw, **cfg)
+    oh, ow, P_cfg = _geometry(x, out_hw, cfg["rotation_tuple"], cfg["crop_mode"])
+    table = augment_param_table(params, B, (H, W), (oh, ow), device=DEVICE, **cfg)
+    return (params, table, (oh, ow), cfg["hsv_pert_tuples"] is not None,
+            P_cfg if P is None else P, cfg["horizontal_flip_prob"] is not None)
+
+
 def phase_augment_vs_plain():
     """Returns the flagship configuration's numbers: max |err| in uint8
-    steps, pixels off, kernel ms, plain ms, bound ms, what bounds it."""
-    log("== phase 9: augment_planes_fused kernel vs plain on the card")
-    log("  batch {} of {}x{} uint8 -> {}; limits: no pixel more than 1 step off, at most "
-        "0.01% off; two runs bit-equal".format(AUG_BATCH, PRECROP, PRECROP, AUG_OUT))
+    steps, pixels off, the band route's ms and device ms, the plane route's,
+    plain ms, bound ms, what bounds it."""
+    log("== phase 9: augment_planes_fused kernel vs plain on the card; the band route "
+        "against the plane route")
+    log("  batch {} of {}x{} uint8 -> {}; limits: bit-equal to the plain version and to the "
+        "plane route, two runs bit-equal".format(AUG_BATCH, PRECROP, PRECROP, AUG_OUT))
     x = precrop_batch(AUG_BATCH, PRECROP, PRECROP, seed=9)
     result = None
-    for i, (name, cfg) in enumerate(AUG_CONFIGS):
-        params = draw_batch_params(torch.Generator(device=DEVICE).manual_seed(90 + i),
-                                   AUG_BATCH, (PRECROP, PRECROP), AUG_OUT, **cfg)
-        oh, ow, P = _geometry(x, AUG_OUT, cfg["rotation_tuple"], cfg["crop_mode"])
-        table = augment_param_table(params, AUG_BATCH, (PRECROP, PRECROP), (oh, ow),
-                                    device=DEVICE, **cfg)
-        hsv_on = cfg["hsv_pert_tuples"] is not None
-        flip_on = cfg["horizontal_flip_prob"] is not None
-        got = augment_planes_fused(x, params, AUG_OUT, **cfg)
-        again = launch_augment_kernel(x, table, (oh, ow), hsv_on, P)
-        want = augment_planes_fused_plain(x, table, (oh, ow), hsv_on, P, flip_on)
+    # the six configurations, and the flagship's at 100 px with a +-40 degree
+    # range (P = 35 >= 33, t_hi = 127 > 2P) whose table draws angles to +-90:
+    # the second shear of a bottom band then reads the top rows of the image
+    cases = [(name, cfg, 90 + i, None) for i, (name, cfg) in enumerate(AUG_CONFIGS)]
+    wide = dict(AUG_CFG, rotation_tuple=(-90.0, 90.0))
+    cases.append(("P>=33 wrap", wide, 97, shear_pad((-40.0, 40.0), 100, 100)))
+    for name, cfg, seed, P_given in cases:
+        xc = x[:, :110, :110].contiguous() if P_given else x
+        params, table, (oh, ow), hsv_on, P, flip_on = aug_case(
+            xc, cfg, seed, (100, 100) if P_given else AUG_OUT, P_given)
+        got = launch_augment_kernel(xc, table, (oh, ow), hsv_on, P) if P_given else \
+            augment_planes_fused(xc, params, AUG_OUT, **cfg)
+        again = launch_augment_kernel(xc, table, (oh, ow), hsv_on, P)
+        plane = launch_augment_kernel(xc, table, (oh, ow), hsv_on, P, route="plane")
+        want = augment_planes_fused_plain(xc, table, (oh, ow), hsv_on, P, flip_on)
         torch.cuda.synchronize()
         require(got.dtype == torch.uint8 and got.shape == want.shape,
                 "output {} {}".format(got.dtype, tuple(got.shape)))
         diff = (got.int() - want.int()).abs()
         err, off = diff.max().item(), int((diff > 0).sum().item())
-        same = bool(torch.equal(got, again))
-        log("  {:<12} -> {}x{}: max|err| {} steps, {} of {} pixels off ({:.5%}), repeat "
-            "bit-equal {}".format(name, oh, ow, err, off, diff.numel(), off / diff.numel(),
-                                  same))
-        require(err <= 1 and off <= 1e-4 * diff.numel(),
-                "augment_planes_fused disagrees with its plain version")
+        same, same_plane = bool(torch.equal(got, again)), bool(torch.equal(got, plane))
+        log("  {:<12} -> {}x{}, P {}: max|err| {} steps, {} of {} pixels off ({:.5%}), repeat "
+            "bit-equal {}, plane route bit-equal {}".format(
+                name, oh, ow, P, err, off, diff.numel(), off / diff.numel(), same, same_plane))
+        require(off == 0, "augment_planes_fused's band route differs from its plain version")
         require(same, "two augment_planes_fused runs differ")
+        require(same_plane, "the band route differs from the plane route")
         if name == "all":
-            ms = cuda_ms(lambda: launch_augment_kernel(x, table, (oh, ow), hsv_on, P))
+            def run(route, tile=None):
+                return launch_augment_kernel(x, table, (oh, ow), hsv_on, P, route=route,
+                                             tile=tile)
+
+            times = {r: [] for r in ("plane", "band")}
+            for r in ("plane", "band", "band", "plane"):  # old, new, new, old
+                times[r].append((cuda_ms(lambda: run(r)), device_ms([lambda: run(r)])))
+            (ms, dev), (old_ms, old_dev) = (
+                tuple(statistics.mean(t[i] for t in times[r]) for i in (0, 1))
+                for r in ("band", "plane"))
             plain_ms = cuda_ms(lambda: augment_planes_fused_plain(x, table, (oh, ow), hsv_on,
                                                                   P, flip_on))
             bound, by, n_bytes = augment_bound_ms(AUG_BATCH, PRECROP, PRECROP, oh, ow, P,
                                                   cfg["crop_mode"] is not None)
-            result = dict(max_abs_err=err, pixels_off=off, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound, bound_by=by)
-            log("  times (CUDA events, median of 50 after 10 warm-ups), card: {}".format(
-                card_line()))
-            log("  flagship configuration: kernel {:.4f} ms, plain {:.4f} ms; bound {:.4f} ms "
-                "({}; {:.1f} MB at 3.35 TB/s), the kernel reaches {:.1%} of it".format(
-                    ms, plain_ms, bound, by, n_bytes / 1e6, bound / ms))
+            variants = {tile: device_ms([lambda tile=tile: run("band", tile)])
+                        for tile in AUG_BAND_TILES}
+            result = dict(max_abs_err=err, pixels_off=off, ms=ms, device_ms=dev,
+                          old_route_ms=old_ms, old_route_device_ms=old_dev, plain_ms=plain_ms,
+                          bound_ms=bound, bound_by=by,
+                          band_tiles_device_ms={"{}x{}".format(*k): v
+                                                for k, v in variants.items()})
+            log("  times (CUDA events, median of 50 after 10 warm-ups; device time queued "
+                "behind a spin kernel, mean of 5; routes in turns plane, band, band, plane), "
+                "card: {}".format(card_line()))
+            log("  flagship configuration: band route {:.4f} ms (device {:.4f}, {:.1%} of the "
+                "bound), plane route {:.4f} ms (device {:.4f}), plain {:.4f} ms; bound {:.4f} "
+                "ms ({}; {:.1f} MB at 3.35 TB/s)".format(
+                    ms, dev, bound / dev, old_ms, old_dev, plain_ms, bound, by, n_bytes / 1e6))
+            log("  band route tiles (rows x columns: device ms; the default {}x{}): {}".format(
+                BAND_ROWS, BAND_COLS,
+                {k: round(v, 4) for k, v in result["band_tiles_device_ms"].items()}))
     return result
 
 
@@ -1273,6 +1329,10 @@ def phase_aug_train(dd):
     require(bool(torch.isfinite(losses).all()) and tuple(preds.shape) == (3, 2 * AUG_BATCH),
             "multi-step losses or preds")
     launches = [k.launches for k in AUG_KERNELS]
+    aug_routes = dict(augment_planes_fused.launches_by_route)
+    log("  augmentation launches by route {}".format(aug_routes))
+    require(aug_routes["band"] == launches[0] and aug_routes["plane"] == 0,
+            "an augmented step missed the band route")
     require_vector_route("augmented training run", kernels=KERNELS)
     before, routes = [k.launches for k in AUG_KERNELS], route_counts()
     loss16, _ = bf16_flow(lambda: trainer.step_augmented_indexed(
@@ -1287,7 +1347,7 @@ def phase_aug_train(dd):
             "non-finite parameters")
     log("  8 steps of {} trained images: launches augment/forward/dx/dw/bn_stats {}".format(
         2 * AUG_BATCH, launches))
-    return trainer, launches, rows_stack[-1]
+    return trainer, launches, aug_routes, rows_stack[-1]
 
 
 def phase_aug_equal(dd, rows):
@@ -1370,17 +1430,17 @@ def phase_aug_times(trainer, dd, rows):
 
 
 def phase_aug_slice():
-    """Phases 10 and 10b; returns the augmentation kernel's launches over
-    the eight steps of phase 10."""
+    """Phases 10 and 10b; returns the five kernels' launches over the eight
+    steps of phase 10, and the augmentation kernel's launches by route."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "packed")
         log("== phase 10: the device-resident dataset")
         write_dataset(path)
         dd = upload_dataset(path)
-        trainer, launches, rows = phase_aug_train(dd)
+        trainer, launches, aug_routes, rows = phase_aug_train(dd)
         phase_aug_equal(dd, rows)
         phase_aug_times(trainer, dd, rows)
-    return launches
+    return launches, aug_routes
 
 
 def gemm_inputs(M, K, N, dtype, seed):
@@ -1444,6 +1504,37 @@ def route_times(fn, routes=("cuda_core", "tensor_core")):
     return {r: (statistics.mean(ev[r]), statistics.mean(dev[r])) for r in routes}
 
 
+def fp32_route_times(a, b, out_dtype, n, mm_bound, st_bound):
+    """Device ms of one fp32 flagship GEMM: matmul and matmul_bn_stats on the
+    pipelined and the classic CUDA-core routes in turns (old, new, new, old),
+    and cuBLAS's torch.matmul; events ms beside. Logs a line."""
+    routes = ("cuda_core", "cuda_core_pipelined")
+    mm = route_times(lambda r: launch_matmul(a, b, r), routes)
+    st = route_times(lambda r: launch_matmul_bn_stats(a, b, out_dtype, r), routes)
+    lib = device_ms([lambda: torch.matmul(a, b)])
+    tiles = {"{}x{}".format(*tile): device_ms([lambda tile=tile: launch_matmul(
+        a, b, routes[1], tile)]) for tile in PIPELINED_TILES}
+    stats_tiles = {"{}x{}".format(*tile): device_ms([lambda tile=tile: launch_matmul_bn_stats(
+        a, b, out_dtype, routes[1], tile)]) for tile in PIPELINED_TILES}
+    row = dict(device_ms=mm[routes[1]][1], old_route_device_ms=mm[routes[0]][1],
+               ms=mm[routes[1]][0], old_route_ms=mm[routes[0]][0], library_device_ms=lib,
+               bound_ms=mm_bound, stats_device_ms=st[routes[1]][1],
+               stats_old_route_device_ms=st[routes[0]][1], stats_bound_ms=st_bound,
+               tile="{}x{}".format(*_gemm_tile(*a.shape, b.shape[1])),
+               stats_tile="{}x{}".format(*_gemm_tile(*a.shape, b.shape[1], stats=True)),
+               tiles_device_ms=tiles, stats_tiles_device_ms=stats_tiles)
+    log("    x{} layers, device ms: matmul pipelined {:.4f} ({:.1%} of the bound), cuda_core "
+        "{:.4f}, cuBLAS {:.4f}; matmul_bn_stats pipelined {:.4f} ({:.1%}), cuda_core {:.4f}; "
+        "bound {:.4f} / {:.4f}; by tile, matmul (the rule's {}) {}, matmul_bn_stats (the "
+        "rule's {}) {}".format(
+            n, row["device_ms"], mm_bound / row["device_ms"], row["old_route_device_ms"], lib,
+            row["stats_device_ms"], st_bound / row["stats_device_ms"],
+            row["stats_old_route_device_ms"], mm_bound, st_bound, row["tile"],
+            {k: round(v, 4) for k, v in tiles.items()}, row["stats_tile"],
+            {k: round(v, 4) for k, v in stats_tiles.items()}))
+    return row
+
+
 def phase_gemm():
     """matmul and matmul_bn_stats against their plain versions, then timed.
     Returns (matmul's numbers, matmul_bn_stats' numbers): over the
@@ -1465,11 +1556,13 @@ def phase_gemm():
     bound = {"matmul": {}, "stats": {}}
     err = {"matmul": 0.0, "stats": 0.0}
     bf16 = {"matmul": [], "stats": []}
+    per_shape = []
+    reset_launches((matmul, matmul_bn_stats))
     for i, (label, M, K, N, in_dtype, out_dtype, n, ab) in enumerate(gemm_cases()):
         a, b = gemm_inputs(M, K, N, in_dtype, seed=800 + i)
         route = _gemm_route(a, b)
-        require(route == ("tensor_core" if in_dtype == torch.bfloat16 else "cuda_core"),
-                "{} took the {} route".format(label, route))
+        require(route == ("tensor_core" if in_dtype == torch.bfloat16 else
+                          "cuda_core_pipelined"), "{} took the {} route".format(label, route))
         before = (matmul.launches_by_route[route], matmul_bn_stats.launches_by_route[route])
         y = matmul(a, b)
         ref = matmul_plain(a, b)
@@ -1499,6 +1592,16 @@ def phase_gemm():
         ys_ratio = (ys_err / ys_limit).max().item()
         dm, dv, s_ratio = stats_errors(mean, var, pmean, pvar, pvar + pmean * pmean)
         same = torch.equal(ys, ys2) and torch.equal(mean, mean2) and torch.equal(var, var2)
+        if route == "cuda_core_pipelined":  # y bit-equal to the classic CUDA-core route's
+            y_old = launch_matmul(a, b, "cuda_core")
+            ys_old = launch_matmul_bn_stats(a, b, out_dtype, "cuda_core")[0]
+            torch.cuda.synchronize()
+            old_equal = torch.equal(y, y_old) and torch.equal(ys, ys_old)
+            log("  {}: tiles {}x{} and, with the statistics, {}x{}; y bit-equal to the "
+                "cuda_core route's (matmul and matmul_bn_stats) {}".format(
+                    label, *_gemm_tile(M, K, N), *_gemm_tile(M, K, N, stats=True), old_equal))
+            require(old_equal, "the pipelined route's y differs from the cuda_core route's")
+            del y_old, ys_old
         del scale, ys_limit, ref, ps
         t = {
             "matmul": cuda_ms(lambda: matmul(a, b)),
@@ -1521,6 +1624,9 @@ def phase_gemm():
         require(ys_ratio <= 1.0 and s_ratio <= 1.0,
                 "matmul_bn_stats disagrees with its plain version")
         require(same, "two matmul_bn_stats runs differ")
+        if n and in_dtype == torch.float32:
+            shape_row = fp32_route_times(a, b, out_dtype, n, mm_bound, st_bound)
+            per_shape.append(dict(shape=label, M=M, K=K, N=N, layers=n, **shape_row))
         if n:
             for k in keys:
                 totals[k] += n * t[k]
@@ -1559,11 +1665,24 @@ def phase_gemm():
                         "torch.mm(out_dtype=float32)" if k == "matmul" else "torch.matmul bf16",
                         "n/a" if lib_ms is None else "{:.4f}".format(lib_ms),
                         "n/a" if lib_dev is None else "{:.4f}".format(lib_dev)))
+    phase_routes = [dict(k.launches_by_route) for k in (matmul, matmul_bn_stats)]
+    log("  phase 11 launches by route: matmul {}, matmul_bn_stats {}".format(*phase_routes))
     device = {k: device_ms(c) for k, c in calls.items()}
     log("  the flagship's 21 GEMMs, device time (calls queued behind a spin kernel, host "
         "gaps left out, mean of 5): matmul {:.4f} ms, matmul_bn_stats {:.4f} ms, its plain version "
         "{:.4f} ms, cuBLAS {:.4f} ms".format(device["matmul"], device["stats"],
                                             device["stats_plain"], device["cublas"]))
+    sums = {k: sum(r["layers"] * r[k] for r in per_shape) for k in per_shape[0]
+            if k.endswith("_ms") and not k.endswith("tiles_device_ms")}
+    log("  the 21 fp32 GEMMs by shape, summed (device ms, routes in turns cuda_core, "
+        "cuda_core_pipelined, cuda_core_pipelined, cuda_core): matmul pipelined {:.4f} ({:.1%} "
+        "of the {:.4f} bound, {:.3f}x cuBLAS's {:.4f}), cuda_core {:.4f}; matmul_bn_stats "
+        "pipelined {:.4f} ({:.1%} of the {:.4f} bound), cuda_core {:.4f}".format(
+            sums["device_ms"], sums["bound_ms"] / sums["device_ms"], sums["bound_ms"],
+            sums["device_ms"] / sums["library_device_ms"], sums["library_device_ms"],
+            sums["old_route_device_ms"], sums["stats_device_ms"],
+            sums["stats_bound_ms"] / sums["stats_device_ms"], sums["stats_bound_ms"],
+            sums["stats_old_route_device_ms"]))
     out = []
     for k, plain_key, library in (("matmul", "plain", totals["cublas"]),
                                   ("stats", "stats_plain", None)):
@@ -1574,9 +1693,15 @@ def phase_gemm():
             .format(BATCH, "matmul" if k == "matmul" else "matmul_bn_stats", totals[k],
                     totals[plain_key], totals["cublas"], total_bound, by,
                     total_bound / totals[k]))
+        prefix = "" if k == "matmul" else "stats_"
         out.append(dict(max_abs_err=err[k], ms=totals[k], plain_ms=totals[plain_key],
                         bound_ms=total_bound, bound_by=by, library_ms=library,
-                        device_ms=device[k], bf16=bf16[k]))
+                        device_ms=device[k],
+                        old_route_device_ms=sums[prefix + "old_route_device_ms"],
+                        library_device_ms=sums["library_device_ms"] if k == "matmul" else None,
+                        phase11_launches_by_route=phase_routes[len(out)],
+                        fp32_shapes=per_shape,
+                        bf16=bf16[k]))
     return out
 
 
@@ -1694,7 +1819,7 @@ def main():
     phase_train_times(trainer)
     del trainer
     aug = phase_augment_vs_plain()
-    aug_launches = phase_aug_slice()
+    aug_launches, aug_routes = phase_aug_slice()
     mm, mm_stats = phase_gemm()
     ab_launches, ab_routes = phase_bn_fuse_ab()
     acc_launches = phase_accumulate()
@@ -1739,7 +1864,7 @@ def main():
         dict(name="augment_planes_fused", route="cuda",
              source="dorknet_tpu_torch/csrc/augment_planes.cu",
              replaces="dorknet_tpu/ops/pallas/augment.py:205", launches=aug_launches[0],
-             library_ms=None, **aug),
+             launches_by_route=aug_routes, library_ms=None, **aug),
         dict(name="batch_norm_stats", route="cuda", source="dorknet_tpu_torch/csrc/bn_stats.cu",
              replaces="dorknet_tpu/ops/pallas/bn_stats.py:34", launches=launches[3],
              max_abs_err=bn_err, **bn),

@@ -39,7 +39,7 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float  # 0.0 when the library was already built
-    compiler_log: str  # nvcc's stderr (ptxas register/spill report)
+    compiler_log: str  # nvcc's stderr at the build (ptxas register/spill report)
 
 
 def _sources():
@@ -72,11 +72,13 @@ def _bind(lib):
                                             ci, ci, ci, ci, vp, ci]
     lib.dorknet_depthwise3x3_dw.restype = ci
     lib.dorknet_augment_planes.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                           ctypes.c_float, ci, vp, ci]
+                                           ctypes.c_float, ci, ci, ci, ci, ci, ci, ci, vp,
+                                           ci]
     lib.dorknet_augment_planes.restype = ci
     lib.dorknet_bn_stats.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, vp, ci]
     lib.dorknet_bn_stats.restype = ci
-    lib.dorknet_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, ci]
+    lib.dorknet_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+                                   ci, vp, ci]
     lib.dorknet_matmul.restype = ci
     lib.dorknet_max_block_smem.argtypes = [ci]
     lib.dorknet_max_block_smem.restype = ci
@@ -95,7 +97,8 @@ def load_library():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     path = BUILD_DIR / "libdorknet_kernels_{}.so".format(digest.hexdigest()[:16])
-    seconds, log = 0.0, ""
+    log_path = path.with_suffix(".log")  # the compiler log, kept beside the library
+    seconds = 0.0
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
@@ -104,8 +107,11 @@ def load_library():
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             log = _compile([s for s in sources if s.suffix == ".cu"],
                            Path(tmp), Path(tmp) / "lib.so")
+            (Path(tmp) / "lib.log").write_text(log)
+            os.replace(Path(tmp) / "lib.log", log_path)
             os.replace(Path(tmp) / "lib.so", path)
         seconds = time.perf_counter() - t0
+    log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(_bind(ctypes.CDLL(str(path))), path, seconds, log)
 
 

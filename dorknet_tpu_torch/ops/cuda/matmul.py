@@ -15,13 +15,22 @@ layers compute their products with ``torch.matmul``, as the JAX package's do
 with ``jnp.dot`` outside any Pallas kernel; these two serve the BN-fusion A/B
 (``utils/bn_fuse_ab.py``).
 
-Two routes, chosen by shape before the launch (``_gemm_route``):
+Three routes, chosen by shape and alignment before the launch
+(``_gemm_route``):
 
 - ``"tensor_core"`` (``csrc/matmul_sm90.cu``): bf16 a and b, K and N
   multiples of 8 (TMA's 16-byte row strides), K > 0, both base pointers
   16-byte aligned; TMA loads and ``wgmma`` on Hopper's tensor cores;
-- ``"cuda_core"`` (``csrc/matmul.cu``): everything else, fp32 always (its
-  only way to the tensor cores is TF32, which the port keeps off).
+- ``"cuda_core_pipelined"`` (``csrc/matmul.cu``): fp32 a and b, K > 0, K and
+  N multiples of 4, both base pointers 16-byte aligned; 16-byte ``cp.async``
+  copies into a ring of three chunks of K, in 64 x 64 tiles (128 x 64 with
+  the statistics, ``_gemm_tile``).
+  fp32's only way to the tensor cores is TF32, which the port keeps off;
+- ``"cuda_core"`` (``csrc/matmul.cu``): everything else (ragged K or N,
+  misaligned views, bf16 that TMA cannot read), in 128 x 128 tiles.
+
+The two CUDA-core routes give bit-equal y: each element is one fmaf chain
+over k in order, whatever the tiling.
 
 On CUDA tensors each wrapper launches the kernel of its route, or raises; on
 CPU tensors it computes the same function with its plain PyTorch version
@@ -34,9 +43,16 @@ import torch
 from dorknet_tpu_torch.ops.cuda.build import check, load_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-TILE_M = 128  # rows of y a block owns (csrc/matmul.cu MM_BM, matmul_sm90.cu TC_BM)
-ROUTES = ("cuda_core", "tensor_core")  # their codes at the C entry point: 0, 1
-
+# their codes at the C entry point: 0, 1, 2
+ROUTES = ("cuda_core", "tensor_core", "cuda_core_pipelined")
+# (BM, BN) of a block's tile of y: routes 0 and 1 have one (csrc/matmul.cu
+# MM_BM x MM_BN, matmul_sm90.cu TC_BM x TC_BN); the pipelined route's
+# instances, largest first
+FIXED_TILE = (128, 128)
+# the pipelined route's instances; _gemm_tile picks the first two (without
+# and with the statistics), 128 x 128 is kept to be timed against them
+# (chip_smoke.py phase 11)
+PIPELINED_TILES = ((64, 64), (128, 64), (128, 128))
 
 def _validate(a, b, out_dtype, who):
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -76,28 +92,60 @@ def matmul_bn_stats_plain(a, b, out_dtype=None):
 def _gemm_route(a, b):
     """The route a (M,K) @ (K,N) takes: ``"tensor_core"`` for bf16 inputs
     that TMA can read (K > 0, K and N multiples of 8, 16-byte aligned
-    pointers), ``"cuda_core"`` for everything else."""
+    pointers), ``"cuda_core_pipelined"`` for fp32 inputs that 16-byte copies
+    can read (K > 0, K and N multiples of 4, 16-byte aligned pointers),
+    ``"cuda_core"`` for everything else."""
     K, N = b.shape
-    if (a.dtype == b.dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0
-            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0):
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0 and K > 0
+    if a.dtype == b.dtype == torch.bfloat16 and aligned and K % 8 == 0 and N % 8 == 0:
         return "tensor_core"
+    if a.dtype == b.dtype == torch.float32 and aligned and K % 4 == 0 and N % 4 == 0:
+        return "cuda_core_pipelined"
     return "cuda_core"
 
 
-def _launch(a, b, out_dtype, stats, route):
-    """The kernel of ``route`` on CUDA tensors: returns y, or (y, mean,
-    var) with stats. The C side refuses a route the inputs cannot take."""
+def _gemm_tile(M, K, N, stats=False):
+    """(BM, BN) of the pipelined route's tile for an (M,K) @ (K,N): 64 x 64
+    for ``matmul``, 128 x 64 for ``matmul_bn_stats``. Both are 64 columns
+    wide, so N = 64 masks no column. Without statistics the 64-row tile
+    gives the most blocks and, on an H100, is the fastest of the three
+    instances of ``PIPELINED_TILES`` at every fp32 GEMM of the flagship;
+    with them it doubles the partials that the fixed-order finishing pass
+    sums (3,136 a column at 200,704 rows), which costs more than the
+    smaller tile saves. ``chip_smoke.py`` phase 11 times each instance at
+    each of those shapes, with and without the statistics. K does not
+    enter: every tile loops over all of it."""
+    return (128, 64) if stats else (64, 64)
+
+
+def _route_tile(route, M, K, N, stats):
+    """(BM, BN) of a block's tile of y on ``route`` by default."""
+    return _gemm_tile(M, K, N, stats) if route == "cuda_core_pipelined" else FIXED_TILE
+
+
+def partials_shape(route, M, K, N, tile=None):
+    """The statistics epilogue's scratch on ``route``: one (2, N) partial
+    (column sums and sums of squares) per BM rows of y."""
+    return (-(-M // (tile or _route_tile(route, M, K, N, True))[0]), 2, N)
+
+
+def _launch(a, b, out_dtype, stats, route, tile=None):
+    """The kernel of ``route`` on CUDA tensors, in ``tile`` (the route's
+    default where None): returns y, or (y, mean, var) with stats. The C side
+    refuses a route or a tile the inputs cannot take."""
     if a.device.type != "cuda":
         raise ValueError("matmul: unsupported device {}".format(a.device))
     M, K = a.shape
     N = b.shape[1]
+    tile = tile or _route_tile(route, M, K, N, stats)
     y = torch.empty((M, N), dtype=out_dtype, device=a.device)
     mean = var = partials = None
     if stats:
-        partials = torch.empty((-(-M // TILE_M), 2, N), dtype=torch.float32,
+        partials = torch.empty(partials_shape(route, M, K, N, tile), dtype=torch.float32,
                                device=a.device)
         mean, var = torch.empty((2, N), dtype=torch.float32, device=a.device)
     if M and N:
+        bm, bn = tile
         kernels = load_library()
         err = kernels.lib.dorknet_matmul(
             a.data_ptr(), b.data_ptr(), y.data_ptr(),
@@ -105,27 +153,28 @@ def _launch(a, b, out_dtype, stats, route):
             None if mean is None else mean.data_ptr(),
             None if var is None else var.data_ptr(),
             M, K, N, _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype], int(stats),
-            ROUTES.index(route), torch.cuda.current_stream(a.device).cuda_stream,
+            ROUTES.index(route), bm, bn, torch.cuda.current_stream(a.device).cuda_stream,
             a.device.index)
         check(kernels.lib, err, "matmul launch ({} route)".format(route))
     return (y, mean, var) if stats else y
 
 
-def launch_matmul(a, b, route):
-    """``matmul`` on CUDA tensors (already checked) through the given route;
-    ``matmul`` itself takes ``_gemm_route(a, b)``. For holding one route
-    against the other on the same inputs."""
-    y = _launch(a, b, torch.float32, False, route)
+def launch_matmul(a, b, route, tile=None):
+    """``matmul`` on CUDA tensors (already checked) through the given route
+    (and, on the pipelined route, tile); ``matmul`` itself takes
+    ``_gemm_route(a, b)``. For holding one route against another on the same
+    inputs."""
+    y = _launch(a, b, torch.float32, False, route, tile)
     if y.numel():
         matmul.launches += 1
         matmul.launches_by_route[route] += 1
     return y
 
 
-def launch_matmul_bn_stats(a, b, out_dtype, route):
+def launch_matmul_bn_stats(a, b, out_dtype, route, tile=None):
     """``matmul_bn_stats`` on CUDA tensors (already checked) through the
-    given route."""
-    out = _launch(a, b, out_dtype, True, route)
+    given route (and tile)."""
+    out = _launch(a, b, out_dtype, True, route, tile)
     matmul_bn_stats.launches += 1
     matmul_bn_stats.launches_by_route[route] += 1
     return out

@@ -25,7 +25,11 @@ from dorknet_tpu.data_loading import device_augment as jaug  # noqa: E402
 
 import dorknet_tpu_torch.config as tconfig  # noqa: E402
 from dorknet_tpu_torch.data_loading import device_augment as taug  # noqa: E402
-from dorknet_tpu_torch.ops.cuda.augment import augment_planes_fused  # noqa: E402
+from dorknet_tpu_torch.ops.augment import shear_coefs, shear_pad  # noqa: E402
+from dorknet_tpu_torch.ops.cuda.augment import (  # noqa: E402
+    BAND_COLS, BAND_ROWS, augment_param_table, augment_planes_fused,
+    augment_planes_fused_plain, band_plan, band_tile, band_windows, fit_band, smem_bytes,
+    t_hi_of)
 
 AUG_CFG = dict(hsv_pert_tuples=((0.9, 1.1), (0.5, 2.0), (0.5, 2.0)),
                rotation_tuple=(-15.0, 15.0), horizontal_flip_prob=0.5,
@@ -244,3 +248,214 @@ def test_mixup_pair_matches_jax_arithmetic():
     want_y = np.concatenate([lam * ym + (1 - lam) * y, lam * y + (1 - lam) * ym])
     np.testing.assert_array_equal(got_x.numpy(), want_x)
     np.testing.assert_array_equal(got_y.numpy(), want_y)
+
+
+# the band route's windows: (oh, ow), the rotation range the margin P is
+# sized for, the largest angle drawn, tiles (rows, columns), and whether
+# some tile's windows exceed the plan (its direct path). P = 32 at the
+# flagship's 225 px; P >= 33 in the rest, where t_hi > 2P. With angles inside
+# the range P was sized for, every window fits the plan and no shift reaches
+# 3P, so no read wraps to content; a table with larger angles (100 px, P
+# from +-40 degrees, angles to +-90) makes the second shear of a bottom band
+# read the top rows of the image, and its tiles exceed the plan
+BAND_CASES = [((225, 225), 15.0, 15.0, ((32, 64), (16, 128)), False),
+              ((225, 225), 20.0, 20.0, ((32, 64),), False),
+              ((100, 100), 40.0, 90.0, ((32, 64), (16, 16)), True),
+              ((64, 64), 90.0, 90.0, ((8, 16), (32, 64)), False),
+              ((320, 320), 15.0, 15.0, ((32, 64),), False),
+              ((29, 33), 15.0, 15.0, ((4, 8), (32, 64)), False)]
+BAND_IDS = ["225_15", "225_20", "100_40_angles90_wraps", "64_90", "320_15", "29x33_15"]
+H100_BLOCK_SMEM = 232448  # the shared memory an H100 block can opt into
+
+
+def _plain_shifts(coef, coords, P):
+    """Integer shifts of lines at fp32 coordinates for coefficients coef
+    (B,), as shear_rotate_planes computes them: (B, lines)."""
+    t = coef.view(-1, 1) * coords.view(1, -1) + P
+    return torch.floor(torch.clamp(t, 0.0, float(t_hi_of(P)))).long()
+
+
+def _seeded_coefs(seed, deg_max, n=6):
+    """a, b of n seeded angles in [-deg_max, deg_max], the two ends included."""
+    deg = np.random.RandomState(seed).uniform(-deg_max, deg_max, n).astype(np.float32)
+    deg[:2] = (-deg_max, deg_max)
+    return shear_coefs(torch.from_numpy(deg))
+
+
+def _in_window(idx, window, period):
+    return bool((((idx - window[0]) % period) < window[1]).all())
+
+
+@pytest.mark.parametrize("size,pad_deg,deg_max,tiles,exceeds", BAND_CASES, ids=BAND_IDS)
+def test_band_windows_hold_every_read_of_the_three_shears(size, pad_deg, deg_max, tiles,
+                                                          exceeds):
+    """Brute force with the plain version's fp32 shifts, for every tile and
+    seeded angle: the third shear's reads (x + t0[y] and the next, modulo
+    Wp) lie in J, the second shear's over J (y + t0[j] and the next, modulo
+    Hp) in R, the first shear's over the content rows of R (j + t0[c] - P
+    and the next) in K. With angles inside the margin's range the windows
+    fit the plan; where the case says so, some tile's exceed it (the
+    kernel's direct path), and some window of R wraps to the top rows."""
+    oh, ow = size
+    P = shear_pad((-pad_deg, pad_deg), oh, ow)
+    Wp, Hp = ow + 2 * P, oh + 2 * P
+    a, b = _seeded_coefs(oh + ow, deg_max)
+    t_rows = _plain_shifts(a, torch.arange(oh, dtype=torch.float32) - oh / 2.0, P)
+    t_cols = _plain_shifts(b, torch.arange(Wp, dtype=torch.float32) - P - ow / 2.0, P)
+    over = wrapped = False
+    for th, tw in tiles:
+        caps = band_plan(oh, ow, P, th, tw)[:3]
+        for i in range(len(a)):
+            for y0 in range(0, oh, th):
+                for x0 in range(0, ow, tw):
+                    y1, x1 = min(y0 + th, oh), min(x0 + tw, ow)
+                    wj, wr, wk = band_windows(float(a[i]), float(b[i]), oh, ow, P, (y0, y1),
+                                              (x0, x1))
+                    over |= any(w[1] > cap for w, cap in zip((wj, wr, wk), caps))
+                    y = torch.arange(y0, y1).view(-1, 1)
+                    k3 = torch.arange(x0, x1).view(1, -1) + t_rows[i, y0:y1].view(-1, 1)
+                    assert _in_window(torch.cat([k3 % Wp, (k3 + 1) % Wp]), wj, Wp)
+                    j = (wj[0] + torch.arange(wj[1])) % Wp
+                    q = y + t_cols[i, j].view(1, -1)
+                    assert _in_window(torch.cat([q % Hp, (q + 1) % Hp]), wr, Hp)
+                    p = (wr[0] + torch.arange(wr[1])) % Hp
+                    c = p[(p >= P) & (p < P + oh)] - P
+                    wrapped |= bool(((q + 1 >= Hp + P) & (q + 1 < Hp + P + oh)).any())
+                    k1 = j.view(1, -1) + t_rows[i, c].view(-1, 1) - P
+                    assert _in_window(torch.cat([k1 % Wp, (k1 + 1) % Wp]), wk, Wp)
+    assert over == exceeds
+    assert wrapped == exceeds
+
+
+def _lerp_u8(v0, v1, frac):
+    """The shears' lerp in fp32, every operation rounded, half up to uint8."""
+    f = np.float32(frac)
+    v = (np.float32(1.0) - f) * v0.astype(np.float32) + f * v1.astype(np.float32)
+    return np.clip(v + np.float32(0.5), 0, 255).astype(np.uint8)
+
+
+def _line_shift(coef, coord, P):
+    t = np.float32(np.float32(coef) * np.float32(coord)) + np.float32(P)
+    t = min(max(t, np.float32(0.0)), np.float32(t_hi_of(P)))
+    return int(np.floor(t)), np.float32(t - np.floor(t))
+
+
+def _band_route(planes, a, b, flip, P, tile):
+    """The band route's algorithm (csrc/augment_planes.cu,
+    augment_band_kernel) in numpy on cropped (and HSV) planes (B,3,oh,ow):
+    per tile, only the K columns of the R rows go through the first shear,
+    into slots of their windows, and the second and third shears read them
+    there, each read's slot its unwrapped index minus the window's start; a
+    tile whose windows exceed the plan reads through the three shears from
+    the planes directly, as the kernel's direct path does."""
+    B, C, oh, ow = planes.shape
+    Wp, Hp = ow + 2 * P, oh + 2 * P
+    cy, cx = np.float32(0.5 * oh), np.float32(0.5 * ow)
+    th, tw = tile
+    caps = band_plan(oh, ow, P, th, tw)[:3]
+    out = np.zeros_like(planes)
+    direct = 0
+    padded = np.zeros((B, C, Hp, Wp), np.uint8)  # the direct path's reads
+    padded[:, :, P:P + oh, P:P + ow] = planes
+
+    def slots(k, w):
+        d = k - w[0]
+        assert (d >= 0).all() and (d < w[1]).all()
+        return d
+
+    for n in range(B):
+        cols = [_line_shift(b[n], np.float32(j - P) - cx, P) for j in range(Wp)]
+        t_c = np.array([t for t, _ in cols])
+        f_c = np.array([f for _, f in cols], np.float32)
+        rows = [_line_shift(a[n], np.float32(c) - cy, P) for c in range(oh)]
+        for y0 in range(0, oh, th):
+            for x0 in range(0, ow, tw):
+                y1, x1 = min(y0 + th, oh), min(x0 + tw, ow)
+                wj, wr, wk = band_windows(a[n], b[n], oh, ow, P, (y0, y1), (x0, x1))
+                j_u = wj[0] + np.arange(wj[1])  # J's unwrapped columns
+                j = j_u % Wp
+                staged = all(w[1] <= cap for w, cap in zip((wj, wr, wk), caps))
+                direct += not staged
+                sa = np.zeros((C, wr[1], wj[1]), np.uint8)
+                k_cols = (wk[0] + np.arange(wk[1])) % Wp
+                for rr in range(wr[1]):
+                    p = (wr[0] + rr) % Hp
+                    if not P <= p < P + oh:
+                        continue
+                    t0, fr = rows[p - P]
+                    k_u = j_u + t0 - P
+                    if staged:
+                        line, s0 = padded[n, :, p][:, k_cols], slots(k_u, wk)
+                        v0, v1 = line[:, s0], line[:, s0 + 1]
+                    else:
+                        v0, v1 = padded[n, :, p][:, k_u % Wp], padded[n, :, p][:, (k_u + 1) % Wp]
+                    sa[:, rr] = _lerp_u8(v0, v1, fr)
+                for y in range(y0, y1):
+                    q = slots(y + t_c[j], wr)
+                    jj = np.arange(wj[1])
+                    rowb = _lerp_u8(sa[:, q, jj], sa[:, q + 1, jj], f_c[j])
+                    t0, fr = rows[y]
+                    xs = np.arange(x0, x1)
+                    s3 = slots(xs + t0, wj)
+                    val = _lerp_u8(rowb[:, s3], rowb[:, s3 + 1], fr)
+                    out[n, :, y][:, ow - 1 - xs if flip[n] else xs] = val
+    return out, direct
+
+
+@pytest.mark.parametrize("size,pad_deg,deg_max,tile", [
+    ((29, 33), 15.0, 15.0, (8, 16)), ((64, 64), 90.0, 90.0, (16, 32)),
+    ((100, 100), 40.0, 90.0, (32, 64))],
+    ids=["29x33_15", "64_90", "100_40_angles90_wraps"])
+def test_band_route_algorithm_is_bit_equal_to_the_plain_version(size, pad_deg, deg_max, tile):
+    """The band route's windows and slots, run in numpy, give the plain
+    version's rotation and flip exactly: at P < 33, at P >= 33, and with
+    angles beyond the range the margin was sized for, where some tiles take
+    the direct path."""
+    oh, ow = size
+    B, H, W = 2, oh + 6, ow + 4
+    cfg = dict(AUG_CFG, rotation_tuple=(-deg_max, deg_max))
+    x = torch.from_numpy(structured_images(oh, B, H, W))
+    params = taug.draw_batch_params(torch.Generator().manual_seed(5), B, (H, W), (oh, ow),
+                                    **cfg)
+    params["deg"][:2] = torch.tensor([deg_max, -deg_max * 0.7])
+    params["flip"][:2] = torch.tensor([True, False])
+    table = augment_param_table(params, B, (H, W), (oh, ow), **cfg)
+    P = shear_pad((-pad_deg, pad_deg), oh, ow)
+    want = augment_planes_fused_plain(x, table, (oh, ow), True, P, True).numpy()
+    planes = augment_planes_fused_plain(x, table, (oh, ow), True, 0, False).numpy()
+    got, direct = _band_route(planes, table[:, 5].numpy(), table[:, 6].numpy(),
+                              table[:, 7].numpy() != 0, P, tile)
+    np.testing.assert_array_equal(got, want)
+    assert (direct > 0) == (deg_max > pad_deg)
+
+
+def test_band_plan_fits_sizes_the_plane_route_refused():
+    """At 320 x 320 (+-15 and +-45 degrees) the plane route's two stage
+    planes exceed an H100 block's shared memory; the band route's plan fits
+    with the default tile. fit_band halves a tile (its longer side) only
+    where it must, and gives caps of 0 (every tile direct) where not even one pixel's
+    plan fits."""
+    for deg in (15.0, 45.0):
+        P = shear_pad((-deg, deg), 320, 320)
+        assert smem_bytes(320, 320, P) > H100_BLOCK_SMEM
+        th, tw, *caps = fit_band(320, 320, P, H100_BLOCK_SMEM)
+        assert (th, tw) == (45, 75) and band_plan(320, 320, P)[:3] == tuple(caps)
+        assert band_plan(320, 320, P)[3] <= H100_BLOCK_SMEM
+    cap_j, cap_r, cap_k, smem = band_plan(225, 225, 32)
+    assert (cap_j, cap_r, cap_k) == (89, 71, 110) and smem < 32 * 1024
+    assert fit_band(225, 225, 32, smem)[:2] == (45, 75)
+    assert fit_band(225, 225, 32, smem - 1)[:2] == (45, 37)
+    assert fit_band(225, 225, 32, 64)[2:] == (0, 0, 0)
+
+
+@pytest.mark.parametrize("size,want", [((225, 225), (45, 75)), ((281, 281), (41, 71)),
+                                       ((100, 100), (34, 50)), ((29, 33), (29, 33)),
+                                       ((320, 320), (40, 64))])
+def test_band_tile_cuts_each_side_into_equal_parts(size, want):
+    """The default tile: at most BAND_ROWS x BAND_COLS, each side the
+    length over the fewest parts that fit (225 = 5 x 45 = 3 x 75), so no
+    band or column chunk is a sliver."""
+    assert band_tile(*size) == want
+    for n, t, cap in zip(size, want, (BAND_ROWS, BAND_COLS)):
+        parts = -(-n // cap)  # the fewest parts of at most cap
+        assert t <= cap and -(-n // t) == parts and (parts - 1) * t < n

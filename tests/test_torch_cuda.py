@@ -14,7 +14,10 @@ from dorknet_tpu_torch.data_loading.device_augment import (  # noqa: E402
     draw_batch_params, train_pipeline)
 from dorknet_tpu_torch.models import ResNet18  # noqa: E402
 from dorknet_tpu_torch.network import Trainer  # noqa: E402
-from dorknet_tpu_torch.ops.cuda.augment import augment_planes_fused  # noqa: E402
+from dorknet_tpu_torch.ops.augment import shear_pad  # noqa: E402
+from dorknet_tpu_torch.ops.cuda.augment import (  # noqa: E402
+    augment_param_table, augment_planes_fused, augment_planes_fused_plain,
+    launch_augment_kernel)
 from dorknet_tpu_torch.ops.cuda.bn_stats import (  # noqa: E402
     batch_norm_stats, batch_norm_stats_plain)
 from dorknet_tpu_torch.ops.cuda.depthwise import (  # noqa: E402
@@ -22,7 +25,8 @@ from dorknet_tpu_torch.ops.cuda.depthwise import (  # noqa: E402
     depthwise3x3_dx, depthwise3x3_dx_plain, depthwise3x3_plain, launch_dw, launch_dx,
     launch_forward)
 from dorknet_tpu_torch.ops.cuda.matmul import (  # noqa: E402
-    _gemm_route, launch_matmul, matmul, matmul_bn_stats, matmul_bn_stats_plain, matmul_plain)
+    PIPELINED_TILES, _gemm_route, _gemm_tile, launch_matmul, launch_matmul_bn_stats, matmul,
+    matmul_bn_stats, matmul_bn_stats_plain, matmul_plain)
 from dorknet_tpu_torch.optimisers import SGDMomentum  # noqa: E402
 from dorknet_tpu_torch.utils.seeded import seed_serving_weights  # noqa: E402
 
@@ -217,8 +221,10 @@ def test_augment_kernel_matches_plain(cuda, B, H, W, out, cfg):
 
 def test_augment_kernel_refuses_float_and_large_rotations(cuda):
     """A float precrop batch on the card raises (the kernel is uint8-only),
-    in the wrapper and through train_pipeline; a rotation whose two stage
-    buffers exceed a block's shared memory raises with the size."""
+    in the wrapper and through train_pipeline. A 320 x 320 rotation, whose
+    two stage planes exceed a block's shared memory on the plane route (which
+    raises with the size), runs on the band route and equals the plain
+    version."""
     p = draw_batch_params(torch.Generator(device=cuda), 2, (30, 30), (24, 24), **AUG_CFG)
     xf = torch.zeros((2, 30, 30, 3), device=cuda)
     with pytest.raises(TypeError, match="uint8"):
@@ -226,12 +232,54 @@ def test_augment_kernel_refuses_float_and_large_rotations(cuda):
     with pytest.raises(TypeError, match="uint8"):
         train_pipeline(torch.Generator(device=cuda), xf, torch.zeros((2, 3), device=cuda),
                        (24, 24), **AUG_CFG)
-    big = torch.zeros((1, 330, 330, 3), dtype=torch.uint8, device=cuda)
-    pb = draw_batch_params(torch.Generator(device=cuda), 1, (330, 330), (320, 320), **AUG_CFG)
-    before = augment_planes_fused.launches
+    big = _precrop_batch(cuda, 1, 330, 330, seed=5)
+    pb = draw_batch_params(torch.Generator(device=cuda).manual_seed(1), 1, (330, 330),
+                           (320, 320), **AUG_CFG)
+    before = dict(augment_planes_fused.launches_by_route)
+    got = augment_planes_fused(big, pb, (320, 320), **AUG_CFG)
+    want = augment_planes_fused(big.cpu(), {k: v.cpu() for k, v in pb.items()}, (320, 320),
+                                **AUG_CFG)
+    torch.cuda.synchronize()
+    assert augment_planes_fused.launches_by_route["band"] == before["band"] + 1
+    assert torch.equal(got.cpu(), want)
+    table = augment_param_table(pb, 1, (330, 330), (320, 320), device=cuda, **AUG_CFG)
+    P = shear_pad(AUG_CFG["rotation_tuple"], 320, 320)
     with pytest.raises(ValueError, match="bytes of shared memory"):
-        augment_planes_fused(big, pb, (320, 320), **AUG_CFG)
-    assert augment_planes_fused.launches == before
+        launch_augment_kernel(big, table, (320, 320), True, P, route="plane")
+    assert augment_planes_fused.launches_by_route["plane"] == before["plane"]
+
+
+# the band route against the plane route and the plain version: the cases
+# of test_augment_kernel_matches_plain with rotation, a P >= 33 one (100 px,
+# +-40 degrees), and one whose table holds angles beyond the range its margin
+# was sized for, so that the second shear of a bottom band reads the top rows
+# and some tiles exceed the plan
+BAND_CASES = [(4, 40, 40, (32, 32), 15.0, 15.0), (3, 37, 45, (29, 33), 15.0, 15.0),
+              (2, 281, 281, (225, 225), 15.0, 15.0), (2, 110, 110, (100, 100), 40.0, 40.0),
+              (2, 110, 110, (100, 100), 40.0, 90.0)]
+
+
+@pytest.mark.parametrize("tile", [None, (32, 64), (16, 128), (1, 1)])
+@pytest.mark.parametrize("B,H,W,out,pad_deg,deg_max", BAND_CASES,
+                         ids=["40", "37x45", "281", "100_P35", "100_wraps"])
+def test_band_route_equals_plane_route_and_plain(cuda, B, H, W, out, pad_deg, deg_max, tile):
+    """Bit-equal to the plain version and to the plane route, with HSV and
+    flip, at several tiles (the last case's tiles partly on the direct
+    path); two launches, one on each route."""
+    cfg = dict(AUG_CFG, rotation_tuple=(-deg_max, deg_max))
+    x = _precrop_batch(cuda, B, H, W, seed=B * H + W)
+    p = draw_batch_params(torch.Generator(device=cuda).manual_seed(4), B, (H, W), out, **cfg)
+    table = augment_param_table(p, B, (H, W), out, device=cuda, **cfg)
+    P = shear_pad((-pad_deg, pad_deg), *out)
+    before = dict(augment_planes_fused.launches_by_route)
+    got = launch_augment_kernel(x, table, out, True, P, route="band", tile=tile)
+    plane = launch_augment_kernel(x, table, out, True, P, route="plane")
+    want = augment_planes_fused_plain(x.cpu(), table.cpu(), out, True, P, True)
+    torch.cuda.synchronize()
+    assert {r: augment_planes_fused.launches_by_route[r] - before[r] for r in before} == \
+        {"band": 1, "plane": 1}
+    assert torch.equal(got, plane)
+    assert torch.equal(got.cpu(), want)
 
 
 def _within_stats_limit(mean, var, ref_mean, ref_var, rtol=2e-5):
@@ -440,7 +488,7 @@ def test_tensor_core_route_agrees_with_the_cuda_core_route(cuda):
     limit = _tc_limit(a, b)
     torch.cuda.synchronize()
     assert {k: matmul.launches_by_route[k] - before[k] for k in before} == \
-        {"tensor_core": 1, "cuda_core": 1}
+        {"tensor_core": 1, "cuda_core": 1, "cuda_core_pipelined": 0}
     assert bool(((y_tc - y_cc).abs() <= 2 * limit).all())
 
 
@@ -591,3 +639,62 @@ def test_gradient_entry_points_refuse_what_the_vector_routes_cannot_take(cuda):
     assert _dx_route(g_off) == "scalar" and _dwgrad_route(x_off, g8) == "scalar"
     assert torch.equal(depthwise3x3_dx(g_off, w8, 1, 4, 4), launch_dx(g8, w8, 1, 4, 4, "scalar"))
     assert torch.equal(depthwise3x3_dw(x6, g6, 1), launch_dw(x6, g6, 1, "scalar"))
+
+
+# the pipelined fp32 route: GEMM_CASES, the flagship's pointwise shapes and
+# dense head with M cut to a few tiles (ragged), and larger grids; every case
+# in each of the route's three tiles
+PIPELINED_CASES = [c for c in GEMM_CASES if c[1] % 4 == 0 and c[2] % 4 == 0 and c[1]] + \
+    [(3 * 128 + 17, K, N) for K, N in ((64, 64), (64, 128), (128, 128), (128, 256),
+                                       (256, 256), (256, 512), (512, 512))] + \
+    [(64, 512, 120), (33900, 64, 128), (40000, 64, 64), (300, 256, 512)]
+
+
+@pytest.mark.parametrize("M,K,N", PIPELINED_CASES)
+def test_pipelined_route_is_bit_equal_to_the_cuda_core_route(cuda, M, K, N):
+    """fp32 y of "cuda_core_pipelined", in its default tile and in each of
+    its three, torch.equal to "cuda_core"'s (each element one fmaf chain
+    over k in order, whatever the tile); with the statistics epilogue, y
+    bit-equal too in fp32 and bf16, the statistics within their limits of
+    the plain version and bit-equal on repeat."""
+    a, b = _gemm_inputs(cuda, M, K, N, torch.float32)
+    assert _gemm_route(a, b) == "cuda_core_pipelined"
+    before = dict(matmul.launches_by_route)
+    y = matmul(a, b)
+    y_old = launch_matmul(a, b, "cuda_core")
+    torch.cuda.synchronize()
+    assert {k: matmul.launches_by_route[k] - before[k] for k in before} == \
+        {"cuda_core_pipelined": 1, "cuda_core": 1, "tensor_core": 0}
+    assert torch.equal(y, y_old)
+    for tile in PIPELINED_TILES:
+        assert torch.equal(launch_matmul(a, b, "cuda_core_pipelined", tile), y_old)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        yo, _, _ = launch_matmul_bn_stats(a, b, out_dtype, "cuda_core")
+        _, ref_mean, ref_var = matmul_bn_stats_plain(a, b, out_dtype)
+        for tile in (None,) + PIPELINED_TILES:
+            ys, mean, var = launch_matmul_bn_stats(a, b, out_dtype, "cuda_core_pipelined", tile)
+            ys2, mean2, var2 = launch_matmul_bn_stats(a, b, out_dtype, "cuda_core_pipelined",
+                                                      tile)
+            torch.cuda.synchronize()
+            assert torch.equal(ys, yo) and torch.equal(ys, ys2)
+            assert torch.equal(mean, mean2) and torch.equal(var, var2)
+            assert _within_stats_limit(mean, var, ref_mean, ref_var)
+    assert _gemm_tile(M, K, N) in PIPELINED_TILES
+
+
+def test_gemm_entry_point_refuses_what_the_pipelined_route_cannot_take(cuda):
+    """Asked for the pipelined route, the C side refuses bf16 inputs, K or N
+    not a multiple of 4, no K and a misaligned view, and nothing launches."""
+    before = dict(matmul.launches_by_route)
+    bad = [
+        _gemm_inputs(cuda, 16, 16, 16, torch.bfloat16),
+        _gemm_inputs(cuda, 16, 6, 16, torch.float32),
+        _gemm_inputs(cuda, 16, 16, 6, torch.float32),
+        _gemm_inputs(cuda, 16, 0, 16, torch.float32),
+    ]
+    a_off = torch.zeros(16 * 16 + 1, device=cuda)[1:].view(16, 16)
+    bad.append((a_off, _gemm_inputs(cuda, 16, 16, 16, torch.float32)[1]))
+    for a, b in bad:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            launch_matmul(a, b, "cuda_core_pipelined")
+    assert matmul.launches_by_route == before

@@ -19,7 +19,8 @@ from dorknet_tpu.ops.pallas.matmul import matmul as jax_matmul  # noqa: E402
 from dorknet_tpu.ops.pallas.matmul import matmul_bn_stats as jax_mm_stats  # noqa: E402
 
 from dorknet_tpu_torch.models import ResNet18  # noqa: E402
-from dorknet_tpu_torch.ops.cuda.matmul import _gemm_route, matmul, matmul_bn_stats  # noqa: E402
+from dorknet_tpu_torch.ops.cuda.matmul import (  # noqa: E402
+    _gemm_route, _gemm_tile, matmul, matmul_bn_stats, partials_shape)
 from dorknet_tpu_torch.utils import bn_fuse_ab  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -145,21 +146,69 @@ def test_gemm_route_sends_bf16_gemms_to_the_tensor_cores(M, K, N):
     assert _gemm_route(a, b) == "tensor_core"
 
 
-@pytest.mark.parametrize("M,K,N,dtype,offset_a,offset_b", [
-    (401408, 64, 256, torch.float32, 0, 0),   # fp32 always stays on the CUDA cores
-    (25088, 1024, 256, torch.float32, 0, 0),
-    (300, 512, 120, torch.float32, 0, 0),
-    (64, 12, 48, torch.bfloat16, 0, 0),       # K not a multiple of 8
-    (64, 32, 50, torch.bfloat16, 0, 0),       # N not a multiple of 8
-    (64, 0, 8, torch.bfloat16, 0, 0),         # no K at all
-    (64, 32, 48, torch.bfloat16, 1, 0),       # a misaligned view
-    (64, 32, 48, torch.bfloat16, 0, 4),       # b misaligned by 8 bytes
+@pytest.mark.parametrize("M,K,N,dtype,offset_a,offset_b,want", [
+    (401408, 64, 256, torch.float32, 0, 0, "cuda_core_pipelined"),  # fp32: the CUDA cores
+    (25088, 1024, 256, torch.float32, 0, 0, "cuda_core_pipelined"),
+    (300, 512, 120, torch.float32, 0, 0, "cuda_core_pipelined"),
+    (64, 12, 48, torch.bfloat16, 0, 0, "cuda_core"),       # K not a multiple of 8
+    (64, 32, 50, torch.bfloat16, 0, 0, "cuda_core"),       # N not a multiple of 8
+    (64, 0, 8, torch.bfloat16, 0, 0, "cuda_core"),         # no K at all
+    (64, 32, 48, torch.bfloat16, 1, 0, "cuda_core"),       # a misaligned view
+    (64, 32, 48, torch.bfloat16, 0, 4, "cuda_core"),       # b misaligned by 8 bytes
+    (129, 7, 128, torch.float32, 0, 0, "cuda_core"),       # fp32, K not a multiple of 4
+    (129, 16, 130, torch.float32, 0, 0, "cuda_core"),      # fp32, N not a multiple of 4
+    (64, 0, 8, torch.float32, 0, 0, "cuda_core"),          # fp32, no K
+    (64, 32, 48, torch.float32, 1, 0, "cuda_core"),        # fp32, a 4 bytes off
+    (64, 32, 48, torch.float32, 0, 2, "cuda_core"),        # fp32, b 8 bytes off
 ], ids=["fp32_early", "fp32_deep", "fp32_jax", "k12", "n50", "k0", "a_misaligned",
-        "b_misaligned"])
-def test_gemm_route_keeps_the_rest_on_the_cuda_cores(M, K, N, dtype, offset_a, offset_b):
+        "b_misaligned", "fp32_k7", "fp32_n130", "fp32_k0", "fp32_a_misaligned",
+        "fp32_b_misaligned"])
+def test_gemm_route_keeps_the_rest_on_the_cuda_cores(M, K, N, dtype, offset_a, offset_b, want):
+    """What the tensor cores cannot take stays on the CUDA cores: fp32 that
+    16-byte copies can read on the pipelined route, the rest (ragged K or N,
+    no K, misaligned views, bf16 that TMA cannot read) on the classic one."""
     a = _operand((M, K), dtype, offset_a)
     b = _operand((K, N), dtype, offset_b)
-    assert _gemm_route(a, b) == "cuda_core"
+    assert _gemm_route(a, b) == want
+
+
+FLAGSHIP_FP32 = [(chip_smoke.BATCH * hw, K, N) for hw, K, N, _ in chip_smoke.FLAGSHIP_PW] + \
+    [chip_smoke.FLAGSHIP_DENSE]
+
+
+@pytest.mark.parametrize("M,K,N", FLAGSHIP_FP32 + chip_smoke.JAX_TEST_GEMMS,
+                         ids=["pw_{}x{}x{}".format(*s) for s in FLAGSHIP_FP32[:-1]] +
+                         ["dense"] + ["jax_{}x{}x{}".format(*s)
+                                      for s in chip_smoke.JAX_TEST_GEMMS])
+def test_fp32_flagship_and_jax_gemms_take_the_pipelined_route(M, K, N):
+    """Every fp32 GEMM of the flagship at batch 64 (its 20 pointwise layers
+    and the dense head) and of the JAX package's tests takes
+    "cuda_core_pipelined", in a 64-wide tile (N = 64 masks no column): 64 x
+    64, or 128 x 64 with the statistics, whose partials follow the tile's
+    rows."""
+    a = _operand((M, K), torch.float32)
+    b = _operand((K, N), torch.float32)
+    assert _gemm_route(a, b) == "cuda_core_pipelined"
+    assert _gemm_tile(M, K, N) == (64, 64)
+    bm, bn = _gemm_tile(M, K, N, stats=True)
+    assert (bm, bn) == (128, 64)
+    assert partials_shape("cuda_core_pipelined", M, K, N) == (-(-M // bm), 2, N)
+    assert partials_shape("cuda_core", M, K, N) == (-(-M // 128), 2, N)
+    assert partials_shape("cuda_core_pipelined", M, K, N, (64, 64)) == (-(-M // 64), 2, N)
+
+
+def test_gemm_tile_at_the_flagship_and_jax_shapes():
+    """The tile rule at the flagship's seven pointwise shapes, its dense head
+    and the JAX package's shapes: 64 x 64 for matmul, 128 x 64 for
+    matmul_bn_stats, whose partials follow the tile (25 at 3,136 rows, 49 in
+    64-row tiles)."""
+    shapes = FLAGSHIP_FP32 + chip_smoke.JAX_TEST_GEMMS
+    assert [_gemm_tile(M, K, N) for M, K, N in shapes] == [(64, 64)] * 11
+    assert [_gemm_tile(M, K, N, stats=True) for M, K, N in shapes] == [(128, 64)] * 11
+    assert partials_shape("cuda_core_pipelined", 3136, 512, 512) == (25, 2, 512)
+    assert partials_shape("cuda_core_pipelined", 3136, 512, 512, (64, 64)) == (49, 2, 512)
+    assert partials_shape("cuda_core_pipelined", 300, 512, 120) == (3, 2, 120)
+    assert partials_shape("tensor_core", 300, 512, 120) == (3, 2, 120)
 
 
 def test_gemm_routes_count_no_cpu_launch():
@@ -170,5 +219,6 @@ def test_gemm_routes_count_no_cpu_launch():
     b = torch.ones(8, 16, dtype=torch.bfloat16)
     matmul(a, b)
     matmul_bn_stats(a, b)
-    assert set(before[0]) == set(before[1]) == {"cuda_core", "tensor_core"}
+    assert set(before[0]) == set(before[1]) == {"cuda_core", "tensor_core",
+                                                "cuda_core_pipelined"}
     assert (matmul.launches_by_route, matmul_bn_stats.launches_by_route) == before
