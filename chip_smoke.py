@@ -28,6 +28,20 @@ Phases (each checks its results; any failure ends the run non-zero with no
    probs must match the same network's forward on CPU tensors;
 4. serving: ``BatchingServer`` with 64 concurrent single-image requests and
    one 5-image request;
+4b. BN-folded serving of the same network: ``InferenceRunner(fold_bn=True)``
+   on the 150 images (16 depthwise launches a dispatch, all vector, no
+   ``batch_norm_stats``; within 1e-4 of the unfolded runner and of the CPU
+   twin's folded runner); the unfolded and folded served forwards in turns,
+   fp32 and bf16 flow (events, ``device_ms``, kernels a forward, the
+   elementwise class's profiler ms), and the folded forward through the
+   registered op ``dorknet::depthwise3x3`` against the launch called
+   directly; ``predict_iter`` against ``predict_probs`` (probs, the pinned
+   rings' slots, host clock); ``BatchingServer`` over the folded runner;
+   ``export_program`` at batch 64 and with a polymorphic batch, saved to a
+   temporary file and reloaded by ``load_serving_artifact`` (the op in the
+   graph 16 times, 16 launches a reloaded dispatch, within 1e-6 of the
+   runner; batches 1, 7 and 64 from the polymorphic one; size and events
+   time against the runner);
 5. times (CUDA events, median of 50 after 10 warm-ups): per depthwise shape
    the kernel's two routes (in turns), the plain version and cuDNN's grouped
    conv; the 16 layers' device time (``device_ms``) of the vector route,
@@ -108,7 +122,8 @@ Phases (each checks its results; any failure ends the run non-zero with no
 
 The line before the last is a JSON object of the kernels of the paths (with
 each kernel's launches by route, and both routes' times, device times
-included); the last line is
+included; the depthwise forward's entry also carries its launches in the
+folded served run and in the reloaded programs' runs); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -133,12 +148,15 @@ from dorknet_tpu_torch.data_loading import (DeviceResidentDataset, draw_batch_pa
                                             train_pipeline, write_packed_arrays)
 from dorknet_tpu_torch.layers.base import to_nhwc
 from dorknet_tpu_torch.models import ResNet18
-from dorknet_tpu_torch.network import BatchingServer, InferenceRunner, Trainer
+from dorknet_tpu_torch.layers import BatchNormLayer
+from dorknet_tpu_torch.network import (BatchingServer, InferenceRunner, Trainer,
+                                       load_serving_artifact)
 from dorknet_tpu_torch.ops.augment import shear_pad
 from dorknet_tpu_torch.ops.cuda.augment import (
     BAND_COLS, BAND_ROWS, _geometry, augment_param_table, augment_planes_fused,
     augment_planes_fused_plain, launch_augment_kernel)
 from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats, batch_norm_stats_plain
+import dorknet_tpu_torch.ops.cuda.depthwise as dw_mod
 from dorknet_tpu_torch.ops.cuda.build import load_library
 from dorknet_tpu_torch.ops.cuda.depthwise import (
     _dw_route, _dwgrad_route, _dx_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain,
@@ -148,6 +166,7 @@ from dorknet_tpu_torch.ops.cuda.matmul import (
     PIPELINED_TILES, _gemm_route, _gemm_tile, launch_matmul, launch_matmul_bn_stats, matmul,
     matmul_bn_stats, matmul_bn_stats_plain, matmul_plain)
 from dorknet_tpu_torch.optimisers import SGDMomentum
+from dorknet_tpu_torch.serving_artifact import deserialize
 from dorknet_tpu_torch.utils import bn_fuse_ab
 from dorknet_tpu_torch.utils.autotune import measure_device_ms
 from dorknet_tpu_torch.utils.seeded import seed_serving_weights
@@ -282,14 +301,15 @@ def cuda_ms(fn, warmup=10, iters=50):
     return measure_device_ms(fn, runs=iters, warmup=warmup)
 
 
-def device_ms(calls, repeats=5):
+def device_ms(calls, repeats=5, inner=None):
     """Device ms of one pass over ``calls`` (thunks), with the host's gaps
     between launches taken out: a spin kernel holds the card while the host
     queues a pass behind it, so the pass runs back to back between two CUDA
     events; the mean of ``repeats`` passes after one warm-up pass. It counts
     the card's own gap between queued kernels (about a µs each). A pass is
     queued alone because the card takes only about a thousand pending
-    launches; a short list is repeated within a pass up to 20 calls, so the
+    launches; a short list is repeated within a pass up to 20 calls (``inner`` sets
+    the repeats: 1 for a call of a hundred kernels or more, such as a forward), so the
     events' own few µs weigh little. If the spin ended before the host had
     queued the pass, it spins longer and measures again. (torch.profiler's
     kernel records, summed, dropped some kernels in some profiling sessions
@@ -297,7 +317,7 @@ def device_ms(calls, repeats=5):
     for fn in calls:
         fn()
     torch.cuda.synchronize()
-    inner = max(1, 20 // len(calls))
+    inner = inner or max(1, 20 // len(calls))
     total, spin = 0.0, 20_000_000  # cycles: about 10 ms
     for _ in range(repeats):
         for _ in range(4):
@@ -493,8 +513,9 @@ def phase_slice(net_cpu, runner, X):
     return launches
 
 
-def phase_serving(runner, X):
-    log("== phase 4: BatchingServer")
+def serve_concurrently(runner, X):
+    """BatchingServer over ``runner``: BATCH single-image requests from as
+    many threads, then one of 5 rows. Returns the dispatches."""
     want = runner.predict_probs(X[:BATCH + 5])
     results = [None] * BATCH
     srv = BatchingServer(runner, max_wait_ms=50)
@@ -518,6 +539,237 @@ def phase_serving(runner, X):
         .format(BATCH, dispatches, err))
     require(dispatches < BATCH, "requests were not batched")
     require(err <= 1e-5, "served probs differ from the runner's")
+    return dispatches
+
+
+def phase_serving(runner, X):
+    log("== phase 4: BatchingServer")
+    serve_concurrently(runner, X)
+
+
+ELEMENTWISE = "elementwise and reductions"  # kernel_class's name for them
+
+
+def forward_times(fwds, x):
+    """Each of ``fwds`` (name -> test-mode forward) on x, the variants in
+    turns (a, b, b, a): the mean of the events' medians and of the device
+    times, then a profile of 5 calls each. Returns name -> dict(events,
+    device, kernels, busy, idle, elementwise, gemm, dw_forward): ms a call,
+    and the idle share of the profiled span."""
+    names = list(fwds)
+    ev, dev = {k: [] for k in names}, {k: [] for k in names}
+    for k in names + names[::-1]:
+        ev[k].append(cuda_ms(lambda f=fwds[k]: f(x)))
+        dev[k].append(device_ms([lambda f=fwds[k]: f(x)], inner=1))
+    out = {}
+    for k in names:
+        span, by_class, _, n_kernels = device_profile(lambda f=fwds[k]: f(x), steps=5)
+        busy = sum(by_class.values())
+        out[k] = dict(events=statistics.mean(ev[k]), device=statistics.mean(dev[k]),
+                      kernels=n_kernels, busy=busy, idle=max(0.0, 1.0 - busy / span),
+                      elementwise=by_class.get(ELEMENTWISE, 0.0),
+                      gemm=by_class.get("GEMM", 0.0),
+                      dw_forward=by_class.get("depthwise forward", 0.0))
+    return out
+
+
+def enqueue_us(fn, calls=200):
+    """Host µs to queue one call of fn (no synchronisation inside the
+    window; the card takes about a thousand pending launches)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def direct_forward(fn):
+    """fn() with ``depthwise3x3`` calling the forward's launch directly
+    instead of through the registered op ``dorknet::depthwise3x3``: the
+    dispatcher's host cost, A/B'd on the same network."""
+    saved = dw_mod.depthwise3x3_op
+    dw_mod.depthwise3x3_op = dw_mod._forward
+    try:
+        return fn()
+    finally:
+        dw_mod.depthwise3x3_op = saved
+
+
+def phase_folded(net_cpu, runner, X):
+    """BN-folded serving of the same network. Returns the depthwise
+    kernel's launches in the folded served run and in the reloaded
+    artifacts' runs, for the kernels line."""
+    log("== phase 4b: BN-folded serving: InferenceRunner(fold_bn=True), its forward beside the "
+        "unfolded one, predict_iter, BatchingServer and the exported program")
+    card = card_line()
+    log("card:", card)
+    dispatches = -(-X.shape[0] // BATCH)
+    want = runner.predict_probs(X)
+    folded = InferenceRunner(runner._source, batch_size=BATCH, device=DEVICE, fold_bn=True)
+    require(not any(isinstance(l, BatchNormLayer) for l in folded.network.modules()),
+            "a batch norm was left in the folded network")
+    reset_launches((depthwise3x3, batch_norm_stats))
+    probs = folded.predict_probs(X)
+    torch.cuda.synchronize()
+    served = dict(launches=depthwise3x3.launches,
+                  launches_by_route=dict(depthwise3x3.launches_by_route))
+    require_vector_route("folded served run")
+    log("  {} images, {} dispatches: depthwise3x3 launches {} (want {}), batch_norm_stats {} "
+        "(want 0)".format(X.shape[0], dispatches, served["launches"], DW_LAYERS * dispatches,
+                          batch_norm_stats.launches))
+    require(served["launches"] == DW_LAYERS * dispatches, "a depthwise layer missed the kernel")
+    require(batch_norm_stats.launches == 0, "the folded forward took batch statistics")
+    cpu = InferenceRunner(net_cpu, batch_size=8, device="cpu", fold_bn=True).predict_probs(X[:8])
+    err_u = float(np.abs(probs - want).max())
+    err_c = float(np.abs(probs[:8] - cpu).max())
+    log("  max|dprob| vs the unfolded runner {:.3e}, vs the CPU twin's folded runner on 8 images "
+        "{:.3e} (limit 1e-4 each)".format(err_u, err_c))
+    require(err_u <= 1e-4 and err_c <= 1e-4, "the folded runner disagrees")
+
+    # the served forward, unfolded and folded, in one call
+    x64 = torch.from_numpy(X[:BATCH]).to(DEVICE)
+    fwds = {"unfolded": runner.network._test_fn, "folded": folded.network._test_fn}
+    times = {}
+    with torch.inference_mode():
+        times["fp32"] = forward_times(fwds, x64)
+        before = route_counts((depthwise3x3,))
+        times["bf16"] = bf16_flow(lambda: forward_times(fwds, x64))
+        torch.cuda.synchronize()
+        require_vector_route("served forwards, bf16 flow", before)
+        op_ab = {"op": [], "direct": []}
+        for k in ("op", "direct", "direct", "op"):
+            f = lambda: cuda_ms(lambda: folded.network._test_fn(x64))  # noqa: E731
+            op_ab[k].append(f() if k == "op" else direct_forward(f))
+        xs, ws = dw_inputs(BATCH, 7, 512, torch.float32, seed=7)
+        host = {"op": [], "direct": []}
+        for k in ("op", "direct", "direct", "op"):
+            fn = dw_mod.depthwise3x3_op if k == "op" else dw_mod._forward
+            host[k].append(enqueue_us(lambda fn=fn: fn(xs, ws, 1)))
+    log("  served forward, batch {} (events: median of 50 after 10 warm-ups; device: "
+        "device_ms; the variants in turns unfolded, folded, folded, unfolded):".format(BATCH))
+    for dt in ("fp32", "bf16"):
+        for k in fwds:
+            t = times[dt][k]
+            busy = t["busy"] or float("nan")
+            log("    {} {:<8}: events {:.3f} ms = {:.0f} img/s; device {:.3f} ms; {} kernels, "
+                "busy {:.3f} ms (profiler; idle share {:.1%}), elementwise {:.3f} ms ({:.1%}), "
+                "GEMM {:.3f} ms ({:.1%}), depthwise forward {:.3f} ms ({:.1%})".format(
+                    dt, k, t["events"], BATCH / t["events"] * 1e3, t["device"], t["kernels"],
+                    t["busy"], t["idle"], t["elementwise"], t["elementwise"] / busy, t["gemm"],
+                    t["gemm"] / busy, t["dw_forward"], t["dw_forward"] / busy))
+    op_ms, direct_ms = statistics.mean(op_ab["op"]), statistics.mean(op_ab["direct"])
+    log("  the op's host cost: folded forward events {:.3f} ms through dorknet::depthwise3x3, "
+        "{:.3f} ms calling the launch directly (in turns {}); queueing one 7x7x512 call: "
+        "{:.1f} µs through the op, {:.1f} µs direct".format(
+            op_ms, direct_ms, {k: [round(v, 4) for v in op_ab[k]] for k in op_ab},
+            statistics.mean(host["op"]), statistics.mean(host["direct"])))
+
+    # predict_iter over the same images, with labels passed through
+    labels = np.arange(X.shape[0], dtype=np.int64)
+
+    def stream():
+        return ((X[i:i + BATCH], labels[i:i + BATCH]) for i in range(0, X.shape[0], BATCH))
+
+    reset_launches((depthwise3x3,))
+    out = list(folded.predict_iter(stream()))
+    torch.cuda.synchronize()
+    iter_launches = depthwise3x3.launches
+    iter_probs = np.concatenate([o[0] for o in out])
+    iter_err = float(np.abs(iter_probs - probs).max())
+    rest_ok = all(o[1].device.type == "cuda" and np.array_equal(o[1].cpu().numpy(), lab)
+                  for o, (_, lab) in zip(out, stream(), strict=True))
+    ins, outs = folded.pinned_rings
+    log("  predict_iter: {} batches, max|dprob| vs predict_probs {:.3e} (limit 1e-6), "
+        "depthwise3x3 launches {}; pinned rings: inputs {} slots ({} buffers pinned), probs {} "
+        "slots ({} pinned)".format(len(out), iter_err, iter_launches, ins.slots,
+                                   ins.allocations, outs.slots, outs.allocations))
+    require(iter_probs.shape == probs.shape and iter_err <= 1e-6,
+            "predict_iter disagrees with predict_probs")
+    require(rest_ok, "predict_iter did not pass the labels through")
+    require(iter_launches == DW_LAYERS * dispatches, "predict_iter missed the kernel")
+    require(ins.slots == 3 and ins.allocations == 2 * ins.slots and outs.slots == 2
+            and outs.allocations == outs.slots, "the pinned rings were not reused")
+    t = {"iter": [], "loop": []}
+    for _ in range(3):
+        for k in ("iter", "loop", "loop", "iter"):
+            t0 = time.perf_counter()
+            if k == "iter":
+                list(folded.predict_iter(stream()))
+            else:
+                [folded.predict_probs(b) for b, _ in stream()]
+            t[k].append((time.perf_counter() - t0) * 1e3)
+    log("  host clock over the {} images (median of 6, in turns): predict_iter {:.3f} ms, a "
+        "predict_probs loop over the same batches {:.3f} ms".format(
+            X.shape[0], statistics.median(t["iter"]), statistics.median(t["loop"])))
+
+    log("  BatchingServer over the folded runner:")
+    served["server_dispatches"] = serve_concurrently(folded, X)
+
+    # the exported program, fixed and polymorphic, reloaded in this process
+    exported = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, poly in (("fixed", False), ("polymorphic", True)):
+            path = os.path.join(tmp, kind + ".pt2")
+            t0 = time.perf_counter()
+            blob = folded.export_program(IMAGE[1:], channels=IMAGE[0], path=path,
+                                         polymorphic_batch=poly)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            art = load_serving_artifact(path, max_batch=BATCH)
+            load_s = time.perf_counter() - t0
+            with open(path + ".meta.json") as f:
+                meta = json.load(f)
+            ops = sum(n.target is torch.ops.dorknet.depthwise3x3.default
+                      for n in deserialize(blob).graph.nodes)
+            require(ops == DW_LAYERS, "the {} program calls the op {} times".format(kind, ops))
+            require(meta["platforms"] == ["cuda"] and art.polymorphic_batch == poly,
+                    "artifact meta {}".format(meta))
+            reset_launches((depthwise3x3,))
+            p = art.predict_probs(X)
+            torch.cuda.synchronize()
+            launches = depthwise3x3.launches
+            require_vector_route("reloaded {} program".format(kind))
+            # rows computed at the runner's batch, and the polymorphic one's
+            # ragged last chunk (another batch size)
+            full = dispatches - 1 if X.shape[0] % BATCH else dispatches
+            err = float(np.abs(p[:full * BATCH] - probs[:full * BATCH]).max())
+            err_tail = float(np.abs(p[full * BATCH:] - probs[full * BATCH:]).max())
+            log("  {} artifact: {} bytes ({:.1f} MB), export {:.2f} s, load {:.2f} s; {} op calls "
+                "in the graph; predict_probs on {} images: depthwise3x3 launches {} (want {}), "
+                "max|dprob| vs the runner {:.3e} at its batch, {:.3e} on the last {} rows".format(
+                    kind, len(blob), len(blob) / 1e6, export_s, load_s, ops, X.shape[0],
+                    launches, DW_LAYERS * dispatches, err, err_tail,
+                    X.shape[0] - full * BATCH))
+            require(launches == DW_LAYERS * dispatches,
+                    "the reloaded program missed the kernel")
+            require(max(err, err_tail) <= 1e-6, "the reloaded program disagrees with the runner")
+            exported[kind] = dict(bytes=len(blob), launches=launches, art=art)
+        poly = exported["polymorphic"]["art"]
+        for n in (1, 7, BATCH):
+            before = depthwise3x3.launches
+            pn = poly(torch.from_numpy(X[:n]).to(DEVICE)).cpu().numpy()
+            err = float(np.abs(pn - probs[:n]).max())
+            log("  polymorphic artifact at batch {}: shape {}, depthwise3x3 launches {}, "
+                "max|dprob| vs the runner {:.3e}".format(n, pn.shape, depthwise3x3.launches - before,
+                                                         err))
+            require(pn.shape == (n, NUM_CLASSES) and depthwise3x3.launches - before == DW_LAYERS,
+                    "the polymorphic artifact failed at batch {}".format(n))
+            # another batch size than the runner's picks other GEMM and conv
+            # algorithms, which sum in another order
+            require(err <= 1e-5, "the polymorphic artifact disagrees at batch {}".format(n))
+        fixed = exported["fixed"]["art"]
+        with torch.inference_mode():
+            ab = forward_times({"runner": folded.network._test_fn, "artifact": fixed}, x64)
+    log("card:", card)
+    log("  folded forward, batch {} (in turns): runner events {:.3f} ms, device {:.3f} ms, {} "
+        "kernels; the reloaded fixed artifact events {:.3f} ms, device {:.3f} ms, {} kernels"
+        .format(BATCH, ab["runner"]["events"], ab["runner"]["device"], ab["runner"]["kernels"],
+                ab["artifact"]["events"], ab["artifact"]["device"], ab["artifact"]["kernels"]))
+    return dict(folded_serving_launches=served["launches"],
+                folded_serving_launches_by_route=served["launches_by_route"],
+                exported_launches={k: v["launches"] for k, v in exported.items()})
 
 
 def dw_bytes(N, H, C, stride):
@@ -1808,6 +2060,7 @@ def main():
     X = np.random.RandomState(1).randn(150, *IMAGE).astype(np.float32)
     serve_launches = phase_slice(net_cpu, runner, X)
     phase_serving(runner, X)
+    folded = phase_folded(net_cpu, runner, X)
     fwd = phase_times(runner, X)
     del runner, net_gpu, net_cpu
     bwd_err = phase_bwd_vs_plain()
@@ -1850,7 +2103,7 @@ def main():
              old_route_device_ms=fwd["device_scalar"], library_device_ms=fwd["device_cudnn"],
              bf16_device_ms=fwd["device_vector_bf16"],
              bf16_old_route_device_ms=fwd["device_scalar_bf16"],
-             bf16_library_device_ms=fwd["device_cudnn_bf16"]),
+             bf16_library_device_ms=fwd["device_cudnn_bf16"], **folded),
         dict(name="depthwise3x3_dx", source="dorknet_tpu_torch/csrc/depthwise3x3_bwd.cu",
              launches=launches[1], max_abs_err=bwd_err["dx"], ms=bwd["dx"],
              plain_ms=bwd["dx_plain"], bound_ms=bound_ms, bound_by=bound_by,

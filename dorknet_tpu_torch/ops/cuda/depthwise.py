@@ -405,15 +405,33 @@ class Depthwise3x3Fn(torch.autograd.Function):
         return dx, dw, None
 
 
+@torch.library.custom_op("dorknet::depthwise3x3", mutates_args=())
+def depthwise3x3_op(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """The forward as the registered op ``dorknet::depthwise3x3``, which
+    ``torch.export`` records in a graph (a ctypes launch on ``data_ptr()``
+    cannot be traced): the plain version on a CPU tensor, the kernel of its
+    route on a CUDA one. The route, the strip and the SM count are read here,
+    at run time, so a program exported with a symbolic batch still takes the
+    vector route."""
+    return _forward(x, w, stride)
+
+
+@depthwise3x3_op.register_fake
+def _depthwise3x3_fake(x, w, stride):
+    N, H, W, C = x.shape
+    return x.new_empty((N, *_out_hw(H, W, stride), C))
+
+
 def depthwise3x3(x, w, stride=1):
     """Depthwise 3x3, padding 1, stride 1 or 2. x: (N,H,W,C) contiguous,
     float32 or bfloat16; w: (C,3,3) float32. Returns (N,Ho,Wo,C) in x's
     dtype, accumulated in fp32. Bias is the caller's. Differentiable: with a
-    gradient needed it runs through ``Depthwise3x3Fn``."""
+    gradient needed it runs through ``Depthwise3x3Fn``; without one, through
+    the registered op ``depthwise3x3_op``."""
     _validate(x, w, stride)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return Depthwise3x3Fn.apply(x, w, stride)
-    return _forward(x, w, stride)
+    return depthwise3x3_op(x, w, stride)
 
 
 depthwise3x3.launches = 0

@@ -143,6 +143,45 @@ def test_resnet18_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-5)
 
 
+def test_folded_serving_predict_iter_and_export_on_card(cuda, tmp_path):
+    """fold_bn on the card: the folded runner serves the CPU folded runner's
+    probs within 1e-5 with 16 depthwise launches a dispatch; predict_iter
+    through the pinned rings streams predict_probs's probs and passes the
+    labels through; the fixed and polymorphic programs, reloaded, launch the
+    kernel 16 times a dispatch through dorknet::depthwise3x3 and serve the
+    runner's probs within 1e-6."""
+    from dorknet_tpu_torch.network import InferenceRunner, load_serving_artifact
+
+    np.random.seed(0)
+    net = ResNet18("dogs", num_classes=10)
+    seed_serving_weights(net, seed=0, calib_hw=(33, 33))
+    X = np.random.RandomState(1).randn(11, 3, 33, 33).astype(np.float32)
+    want = InferenceRunner(net, batch_size=4, device="cpu", fold_bn=True).predict_probs(X)
+    runner = InferenceRunner(net, batch_size=4, device=cuda, fold_bn=True)
+    before = depthwise3x3.launches
+    got = runner.predict_probs(X)
+    assert depthwise3x3.launches == before + 16 * 3
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    labels = np.arange(11)
+    out = list(runner.predict_iter(iter([(X[i:i + 4], labels[i:i + 4])
+                                         for i in range(0, 11, 4)])))
+    np.testing.assert_array_equal(np.concatenate([o[0] for o in out]), got)
+    assert all(o[1].device.type == "cuda" for o in out)
+    np.testing.assert_array_equal(np.concatenate([o[1].cpu().numpy() for o in out]), labels)
+    ins, probs = runner.pinned_rings
+    assert (ins.slots, ins.allocations, probs.slots, probs.allocations) == (3, 6, 2, 2)
+    for poly in (False, True):
+        path = str(tmp_path / "a{}.pt2".format(int(poly)))
+        runner.export_program((33, 33), path=path, polymorphic_batch=poly)
+        art = load_serving_artifact(path, max_batch=4)
+        assert art.platforms == ("cuda",) and art.polymorphic_batch == poly
+        before = depthwise3x3.launches
+        p = art.predict_probs(X)
+        torch.cuda.synchronize()
+        assert depthwise3x3.launches == before + 16 * 3
+        np.testing.assert_allclose(p, got, rtol=0, atol=1e-6)
+
+
 def test_trainer_step_on_card_matches_cpu(cuda):
     """ResNet18 at full width, fresh BN, two Trainer.steps (clip 1.0, EMA
     0.9) at batch 4 at the flagship's 225 px on the card and on the CPU

@@ -110,7 +110,9 @@ def test_building_a_runner_leaves_the_callers_network_alone():
 def test_refresh_copies_in_place_and_fold_bn_still_raises():
     """refresh() writes into the served copy's own tensors (nothing new is
     allocated), including the running stats of batch norms nested in
-    residual blocks; fold_bn=True is refused."""
+    residual blocks. fold_bn=True, once refused, now serves the unfolded
+    runner's probs within the JAX fold tolerance (rtol 1e-4, atol 1e-5);
+    tests/test_torch_fold_bn.py holds its refresh."""
     _, net, _, trainer, X, y = _trained_pair()
     runner = InferenceRunner(net, batch_size=4, device="cpu")
     served = list(runner.network.parameters()) + list(runner.network.buffers())
@@ -125,5 +127,7 @@ def test_refresh_copies_in_place_and_fold_bn_still_raises():
     nested = [l for l in runner.network.modules() if isinstance(l, tlayers.BatchNormLayer)]
     assert len(nested) > len([l for l in runner.network.layers
                               if isinstance(l, tlayers.BatchNormLayer)])
-    with pytest.raises(NotImplementedError, match="fold_bn"):
-        InferenceRunner(net, batch_size=4, device="cpu", fold_bn=True)
+    Xe = np.random.RandomState(12).randn(6, 3, 17, 17).astype(np.float32)
+    folded = InferenceRunner(net, batch_size=4, device="cpu", fold_bn=True)
+    np.testing.assert_allclose(folded.predict_probs(Xe), runner.predict_probs(Xe),
+                               rtol=1e-4, atol=1e-5)

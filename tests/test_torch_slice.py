@@ -119,7 +119,8 @@ def test_resnet18_matches_jax_test_fn(resnet18_pair):
 
 def test_inference_runner_pads_and_slices(resnet18_pair):
     """(e) batch_size 4 over 7 images: two dispatches, the second padded,
-    equal to one plain forward of all 7."""
+    equal to one plain forward of all 7; with fold_bn=True the same probs
+    within the JAX fold tolerance (rtol 1e-4, atol 1e-5)."""
     net, _ = resnet18_pair
     X = np.random.RandomState(2).randn(7, 3, 33, 33).astype(np.float32)
     runner = InferenceRunner(net, batch_size=4, device="cpu")
@@ -129,8 +130,8 @@ def test_inference_runner_pads_and_slices(resnet18_pair):
     np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(runner.predict(X), got.argmax(1))
     assert runner.predict_probs(X[:0]).shape == (0, 120)
-    with pytest.raises(NotImplementedError, match="fold_bn"):
-        InferenceRunner(net, batch_size=4, fold_bn=True)
+    folded = InferenceRunner(net, batch_size=4, device="cpu", fold_bn=True)
+    np.testing.assert_allclose(folded.predict_probs(X), got, rtol=1e-4, atol=1e-5)
 
 
 def _identity_join_net(layers, network_cls):
@@ -187,6 +188,9 @@ def test_port_imports_no_jax():
             "import dorknet_tpu_torch.data_loading.prefetch\n"
             "import dorknet_tpu_torch.ops.cuda.bn_stats, dorknet_tpu_torch.ops.cuda.matmul\n"
             "import dorknet_tpu_torch.utils.autotune, dorknet_tpu_torch.utils.bn_fuse_ab\n"
+            "import dorknet_tpu_torch.utils.fold_bn, dorknet_tpu_torch.serving_artifact\n"
+            "import dorknet_tpu_torch.examples.serving_demo\n"
+            "import dorknet_tpu_torch.tools.export_serving\n"
             "bad = [m for m in ('jax', 'h5py', 'cv2', 'dorknet_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
