@@ -118,12 +118,36 @@ Phases (each checks its results; any failure ends the run non-zero with no
     64: the BN pre-pass and the two micro-batches launch
     ``batch_norm_stats`` 34 x 3 times, the depthwise forward 48 and dx and
     dw 32 each, with a finite loss; a second call without the pre-pass, one
-    in bf16 flow, and its time.
+    in bf16 flow, and its time;
+13b. the captured steps (the trainer's default on the card; phases 7-13
+    run ``cuda_graph=False``, the eager path, whose per-step launch counts
+    they check): ``Trainer.step`` at batch 64, ``step_augmented_indexed``
+    on phase 10's resident dataset (60 rows + mixup) and
+    ``accumulate_step`` (K = 2 x 64), each captured trainer held against an
+    eager twin from the same seed over three replays (under deterministic
+    cuDNN: with its default algorithms two eager trainers part within a
+    step, which the phase logs first): loss, every parameter, running stat
+    and EMA leaf bit-equal, or
+    within 1e-4 relative + 1e-5 absolute, the line saying which held; a
+    ``torch.profiler`` profile of one replay of each must hold the vector
+    depthwise forward, dx and dw 16 times each and ``bn_stats_partial``
+    34 times by kernel name (twice that in the accumulate step, and one
+    band augmentation kernel in the augmented step): a replay moves no
+    launch counter; a ``StepDecay`` change between replays reaches the
+    replay with no recapture, a momentum change captures a new graph;
+    eager and captured in turns in one call (events around the step,
+    busy ms, kernels, wrapper launches and idle share from a profile, and
+    each capture's seconds), a step's peak memory and the graph pool's
+    size; one eager step each of ``remat`` False, True and "blocks"
+    (equal losses, peak memory, busy ms, launches).
 
 The line before the last is a JSON object of the kernels of the paths (with
 each kernel's launches by route, and both routes' times, device times
 included; the depthwise forward's entry also carries its launches in the
-folded served run and in the reloaded programs' runs); the last line is
+folded served run and in the reloaded programs' runs; every entry its
+launches in one replay of each captured step, by name in the profile, and
+the training kernels their wrapper launches over phase 13b's driven
+steps); a JSON object of phase 13b's numbers comes before it; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -1122,9 +1146,10 @@ def bf16_flow(fn):
 def phase_train():
     """Returns the trainer, the launches of each kernel over its three fp32
     steps, and the depthwise kernels' launches by route in them."""
-    log("== phase 7: ResNet18 trained by Trainer.step on the card")
+    log("== phase 7: ResNet18 trained by Trainer.step on the card (eager)")
     net = fresh_resnet18()
-    trainer = Trainer(net, SGDMomentum(net, TRAIN_LR, 0.9), ema_decay=0.999, device=DEVICE)
+    trainer = Trainer(net, SGDMomentum(net, TRAIN_LR, 0.9), ema_decay=0.999, device=DEVICE,
+                      cuda_graph=False)
     X, y = train_batches(2, 3, BATCH)
     reset_launches(TRAIN_KERNELS)
     for step in range(3):
@@ -1167,7 +1192,7 @@ def phase_train_twin():
     for device in (DEVICE, "cpu"):
         net = fresh_resnet18()
         trainers.append(Trainer(net, SGDMomentum(net, 0.05 * 4 / 200.0, 0.9),
-                                ema_decay=0.9, clip_norm=1.0, device=device))
+                                ema_decay=0.9, clip_norm=1.0, device=device, cuda_graph=False))
     for step in range(2):
         got, want = (float(t.step(X[step], y[step])[0]) for t in trainers)
         rel = abs(got - want) / abs(want)
@@ -1286,7 +1311,7 @@ def phase_bwd_times():
 
 def kernel_class(name):
     n = name.lower()
-    if "augment_rotate" in n or "augment_pointwise" in n:
+    if "augment_band" in n or "augment_rotate" in n or "augment_pointwise" in n:
         return "augmentation kernel"
     if "gather" in n or "indexselect" in n:
         return "gathers (dataset rows, mixup partners)"
@@ -1550,8 +1575,8 @@ AUG_KERNELS = (augment_planes_fused,) + TRAIN_KERNELS
 def phase_aug_train(dd):
     """Returns the trainer, the launches of the five kernels over its eight
     steps, and the rows of its last step."""
-    log("== phase 10: ResNet18 trained by Trainer.step_augmented_indexed on the card")
-    trainer = fresh_aug_trainer()
+    log("== phase 10: ResNet18 trained by Trainer.step_augmented_indexed on the card (eager)")
+    trainer = fresh_aug_trainer(cuda_graph=False)
     gen = torch.Generator(device=DEVICE).manual_seed(10)
     aug = dict(AUG_CFG, mixup=MIXUP)
     want = [1] + TRAIN_WANT
@@ -1651,7 +1676,7 @@ def phase_aug_times(trainer, dd, rows):
                   dd.num_classes).float()
     x, yy = train_pipeline(gen, X, y, AUG_OUT, output_layout="NHWC", **aug)
     nhwc = Trainer(trainer.network, SGDMomentum(trainer.network, AUG_LR, 0.9),
-                   input_layout="NHWC", device=DEVICE)
+                   input_layout="NHWC", device=DEVICE, cuda_graph=False)
     # in turns (augmented, plain, plain, augmented): the host's pace drifts
     times = {"aug": [], "plain": []}
     for which in ("aug", "plain", "plain", "aug"):
@@ -1681,18 +1706,17 @@ def phase_aug_times(trainer, dd, rows):
     return ms_aug
 
 
-def phase_aug_slice():
-    """Phases 10 and 10b; returns the five kernels' launches over the eight
-    steps of phase 10, and the augmentation kernel's launches by route."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "packed")
-        log("== phase 10: the device-resident dataset")
-        write_dataset(path)
-        dd = upload_dataset(path)
-        trainer, launches, aug_routes, rows = phase_aug_train(dd)
-        phase_aug_equal(dd, rows)
-        phase_aug_times(trainer, dd, rows)
-    return launches, aug_routes
+def phase_aug_slice(path):
+    """Phases 10 and 10b over a dataset packed at ``path``; returns the five
+    kernels' launches over the eight steps of phase 10, the augmentation
+    kernel's launches by route, and the device-resident dataset."""
+    log("== phase 10: the device-resident dataset")
+    write_dataset(path)
+    dd = upload_dataset(path)
+    trainer, launches, aug_routes, rows = phase_aug_train(dd)
+    phase_aug_equal(dd, rows)
+    phase_aug_times(trainer, dd, rows)
+    return launches, aug_routes, dd
 
 
 def gemm_inputs(M, K, N, dtype, seed):
@@ -2004,10 +2028,11 @@ def phase_bn_fuse_ab():
 def phase_accumulate():
     """Trainer.accumulate_step on a fresh flagship; returns the launches of
     its first call."""
-    log("== phase 13: ResNet18 trained by Trainer.accumulate_step on the card, K={} x {}"
-        .format(ACC_K, BATCH))
+    log("== phase 13: ResNet18 trained by Trainer.accumulate_step on the card (eager), "
+        "K={} x {}".format(ACC_K, BATCH))
     net = fresh_resnet18()
-    trainer = Trainer(net, SGDMomentum(net, TRAIN_LR, 0.9), ema_decay=0.999, device=DEVICE)
+    trainer = Trainer(net, SGDMomentum(net, TRAIN_LR, 0.9), ema_decay=0.999, device=DEVICE,
+                      cuda_graph=False)
     X, y = train_batches(13, 2 * ACC_K, BATCH)
     # fresh batch norms: the pre-pass is one more forward, without a backward
     fresh = [DW_LAYERS * (ACC_K + 1), DW_LAYERS * ACC_K, DW_LAYERS * ACC_K,
@@ -2044,6 +2069,349 @@ def phase_accumulate():
     return launches[0]
 
 
+# phase 13b: the hand kernels a replay of each captured step must run, by
+# kernel name (their first pass, for the two-pass kernels), and the GEMM
+# kernels (csrc/matmul.cu, csrc/matmul_sm90.cu), which it must not
+REPLAY_KERNELS = (("depthwise3x3_fwd_vec_kernel", DW_LAYERS), ("depthwise3x3_dx_vec_kernel",
+                  DW_LAYERS), ("depthwise3x3_dw_vec_kernel", DW_LAYERS),
+                  ("bn_stats_partial_kernel", BN_LAYERS))
+GEMM_KERNELS = ("matmul_kernel", "matmul_pipelined_kernel", "matmul_tc_kernel")
+REPLAY_WANT = REPLAY_KERNELS + tuple((name, 0) for name in GEMM_KERNELS)
+GRAPH_STEPS = 3  # replays held against eager steps, per entry point
+GRAPH_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_torch_trainer.py's, if not bit-equal
+
+
+def graph_pair(make=fresh_resnet18, lr=TRAIN_LR, flags=(True, False), **kwargs):
+    """Two trainers of two flagships from one seed, by default a captured
+    and an eager one."""
+    out = []
+    for flag in flags:
+        net = make()
+        out.append(Trainer(net, SGDMomentum(net, lr, 0.9), ema_decay=0.999, device=DEVICE,
+                           cuda_graph=flag, **kwargs))
+    return out
+
+
+def training_state(trainer):
+    """Every parameter, batch-norm running stat and EMA leaf."""
+    stats = [b for m in trainer.network.modules() if isinstance(m, BatchNormLayer)
+             for b in (m.running_mean, m.running_std)]
+    return list(trainer.network.parameters()) + stats + list(trainer._ema)
+
+
+class Agreement:
+    """Captured against eager: bit-equal, or within GRAPH_TOL, or a failed
+    check."""
+
+    def __init__(self):
+        self.equal, self.worst, self.worst_abs = True, 0.0, 0.0
+
+    def add(self, got, want):
+        d = (got.float() - want.float()).abs()
+        self.equal = self.equal and bool((d == 0).all())
+        self.worst_abs = max(self.worst_abs, float(d.max()))
+        self.worst = max(self.worst, float((d / (GRAPH_TOL["atol"] + GRAPH_TOL["rtol"]
+                                                 * want.float().abs())).max()))
+
+    def trainers(self, a, b):
+        for x, y in zip(training_state(a), training_state(b), strict=True):
+            self.add(x.detach(), y.detach())
+
+    def verdict(self, what):
+        held = "bit-equal" if self.equal else "within 1e-4 relative + 1e-5 absolute"
+        log("  {}: captured vs eager {} (max|diff| {:.3e}, {:.3f} of the limit)".format(
+            what, held, self.worst_abs, self.worst))
+        require(self.worst <= 1.0, "{}: the captured steps disagree with the eager ones".format(
+            what))
+        return held
+
+
+def replay_profile(fn, names):
+    """torch.profiler over one call of fn: the count of each kernel name in
+    ``names`` (by prefix), every kernel, busy ms and the host ms."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        span_ms = (time.perf_counter() - t0) * 1e3
+    counts, total, busy = dict.fromkeys(names, 0), 0, 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        total += evt.count
+        busy += evt.device_time_total / 1e3
+        for name in names:
+            if name in evt.key:
+                counts[name] += evt.count
+    return counts, total, busy, span_ms
+
+
+def require_replay_kernels(what, fn, want):
+    """One replay of fn runs each hand kernel of ``want`` ((name, count)
+    pairs) that many times, by name in its profile."""
+    counts, total, busy, span = replay_profile(fn, [n for n, _ in want])
+    log("  {}: one replay's profile: {} kernels, busy {:.3f} ms of {:.3f} ms; hand kernels "
+        "{}".format(what, total, busy, span, counts))
+    require(counts == dict(want), "{}: a replay missed a hand kernel (want {})".format(
+        what, dict(want)))
+    return counts
+
+
+def step_times(pair, fn, what, n_images):
+    """CUDA events around the step, eager and captured in turns (eager,
+    captured, captured, eager), then each one's profile and its wrapper
+    launches a step. Returns a dict of the numbers."""
+    out = {}
+    times = {"eager": [], "captured": []}
+    for which in ("eager", "captured", "captured", "eager"):
+        t = pair[which == "eager"]
+        times[which].append(cuda_ms(lambda: fn(t), warmup=2, iters=10))
+    for which in ("eager", "captured"):
+        t = pair[which == "eager"]
+        ms = statistics.mean(times[which])
+        reset_launches(TRAIN_KERNELS)
+        fn(t)
+        torch.cuda.synchronize()
+        launches = [k.launches for k in TRAIN_KERNELS]
+        span, by_class, _, n_kernels = device_profile(lambda: fn(t))
+        busy = sum(by_class.values())
+        idle = max(0.0, 1.0 - busy / span) if busy else None
+        out[which] = dict(ms=ms, turns=times[which], busy_ms=busy, kernels=n_kernels,
+                          profiled_ms=span, idle_share=idle, launches=launches,
+                          by_class=by_class)
+        log("  {} {}: {:.3f} ms = {:.0f} img/s (turns {}); busy {:.3f} ms, {} kernels a step, "
+            "idle share {} (host clock with the profiler on: {:.3f} ms); wrapper launches "
+            "forward/dx/dw/bn_stats a step {}".format(
+                what, which, ms, n_images / ms * 1e3, [round(v, 3) for v in times[which]],
+                busy, n_kernels, "{:.1%}".format(idle) if idle is not None else "not measured",
+                span, launches))
+        log("    device ms by class: {}".format(
+            {cls: round(v, 3) for cls, v in sorted(by_class.items(), key=lambda kv: -kv[1])}))
+    out["speedup"] = out["eager"]["ms"] / out["captured"]["ms"]
+    log("  {}: captured {:.2f}x eager (events)".format(what, out["speedup"]))
+    return out
+
+
+def pool_bytes(pool):
+    """Bytes of the segments of the CUDA-graph memory pool ``pool``."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) == tuple(pool))
+
+
+def phase_captured(dd):
+    """Phase 13b. Returns the kernels' launches over its driven steps, the
+    kernels a replay runs by name, and the numbers for the kernels line."""
+    log("== phase 13b: captured steps (one CUDA graph replay a step) against eager steps, "
+        "ResNet18 at full width, batch {}, SGDMomentum, EMA 0.999".format(BATCH))
+    log("card:", card_line())
+    held, result = {}, {}
+    # the parity runs under deterministic cuDNN: with its default algorithms
+    # two eager flagship trainers already part after a step (the stem
+    # convolution's weight gradient sums in no fixed order)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        pairs = captured_parity(dd, held)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    step_pair, aug_pair, acc_pair, graph_launches, replay, steps = pairs
+    xs, ys, aug_step, rows, xa, ya_t = steps
+    # --- times, eager and captured in turns; cuDNN's settings are in a
+    # graph's key, so each trainer captures anew under the default algorithms
+    graphed = step_pair[0]
+    log("  times (CUDA events around the step, the mean of two turns of the median of 10 "
+        "after 2 warm-ups; inputs already on the card):")
+    result["step"] = step_times(step_pair, lambda t: t.step(xs[0], ys[0]), "Trainer.step",
+                                BATCH)
+    result["step_augmented_indexed"] = step_times(
+        aug_pair, lambda t: aug_step(t, rows[0]), "step_augmented_indexed", 2 * AUG_BATCH)
+    result["accumulate_step"] = step_times(
+        acc_pair, lambda t: t.accumulate_step(xa[0], ya_t[0]), "accumulate_step",
+        ACC_K * BATCH)
+    result["capture_seconds"] = {"step": graphed.capture_seconds,
+                                 "step_augmented_indexed": aug_pair[0].capture_seconds,
+                                 "accumulate_step": acc_pair[0].capture_seconds}
+    log("  capture seconds (host, the latest of each trainer): {}".format(
+        {k: round(v, 3) for k, v in result["capture_seconds"].items()}))
+    # --- memory: a step's peak over what was allocated before it
+    for which, t in zip(("captured", "eager"), step_pair):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t.step(xs[0], ys[0])
+        torch.cuda.synchronize()
+        result.setdefault("peak_mb", {})[which] = (torch.cuda.max_memory_allocated() - base) / 1e6
+    result["pool_mb"] = pool_bytes(graphed._pool) / 1e6
+    log("  memory: a Trainer.step's peak over the allocated before it, captured {:.1f} MB, "
+        "eager {:.1f} MB; the captured trainer's graph pool holds {:.1f} MB".format(
+            result["peak_mb"]["captured"], result["peak_mb"]["eager"], result["pool_mb"]))
+    result["remat"] = phase_remat(step_pair[1].network)
+    result["held"] = held
+    return graph_launches, replay, result
+
+
+def captured_run(what, fn, steps, want):
+    """fn(k) for k < steps, each the call of a captured trainer, with the
+    launch counts set to 0 just before and read just after: its outputs and
+    its launches augment/forward/dx/dw/bn_stats, which must be ``want``
+    (its eager steps, warm-up and capture; a replay moves none)."""
+    torch.cuda.synchronize()
+    reset_launches(AUG_KERNELS)
+    out = [fn(k) for k in range(steps)]
+    torch.cuda.synchronize()
+    launches = [k.launches for k in AUG_KERNELS]
+    log("  {}: wrapper launches over the captured trainer's {} calls augment/forward/dx/dw/"
+        "bn_stats {} (want {})".format(what, steps, launches, want))
+    require(launches == want, "{}: the captured run's launches".format(what))
+    require_vector_route(what, kernels=KERNELS)
+    return out, launches
+
+
+def captured_parity(dd, held):
+    """Phase 13b's checks: each captured entry point against its eager
+    twin, one replay's kernels by name, a schedule and a momentum change.
+    Records in ``held`` which agreement held. The captured trainer of each
+    pair takes all its steps first, counted, then its eager twin."""
+    from dorknet_tpu_torch.utils.schedules import StepDecay
+
+    step_launches = [0] + TRAIN_WANT
+    launches = {}
+    # --- Trainer.step: adopt, warm up and capture, then GRAPH_STEPS replays
+    step_pair = graph_pair()
+    X, y = train_batches(31, 2 + GRAPH_STEPS, BATCH)
+    xs, ys = torch.from_numpy(X).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+    graphed = step_pair[0]
+    out, launches["step"] = captured_run(
+        "Trainer.step", lambda k: graphed.step(xs[k], ys[k])[0], 2 + GRAPH_STEPS,
+        [3 * n for n in step_launches])
+    agree = Agreement()
+    for k, lg in enumerate(out):
+        agree.add(lg, step_pair[1].step(xs[k], ys[k])[0])
+    require(graphed.captures == 1, "Trainer.step captured {} graphs".format(graphed.captures))
+    log("  Trainer.step: capture {:.3f} s (host), graph pool {:.1f} MB".format(
+        graphed.capture_seconds, pool_bytes(graphed._pool) / 1e6))
+    agree.trainers(*step_pair)
+    held["step"] = agree.verdict("Trainer.step, {} replays".format(GRAPH_STEPS))
+    # --- step_augmented_indexed on the resident dataset, mixup
+    aug = dict(AUG_CFG, mixup=MIXUP)
+    aug_pair = graph_pair(lr=AUG_LR)
+    gens = [torch.Generator(device=DEVICE).manual_seed(131) for _ in aug_pair]
+    rows = [dd.next_indices() for _ in range(2 + GRAPH_STEPS)]
+
+    def aug_step(t, r):
+        return t.step_augmented_indexed(gens[aug_pair.index(t)], dd.images, dd.labels, r,
+                                        AUG_OUT, dd.num_classes, **aug)
+
+    out, launches["step_augmented_indexed"] = captured_run(
+        "step_augmented_indexed", lambda k: aug_step(aug_pair[0], rows[k])[0], len(rows),
+        [3 * n for n in [1] + TRAIN_WANT])
+    agree = Agreement()
+    for r, lg in zip(rows, out, strict=True):
+        agree.add(lg, aug_step(aug_pair[1], r)[0])
+    require(aug_pair[0].captures == 1, "the augmented step's captures")
+    agree.trainers(*aug_pair)
+    held["step_augmented_indexed"] = agree.verdict(
+        "step_augmented_indexed, {} images + mixup, {} replays".format(AUG_BATCH, GRAPH_STEPS))
+    # --- accumulate_step, K = 2 x 64: the first call warms up and captures
+    acc_pair = graph_pair()
+    Xa, ya = train_batches(32, ACC_K * (1 + GRAPH_STEPS), BATCH)
+    xa = torch.from_numpy(Xa).to(DEVICE).view(1 + GRAPH_STEPS, ACC_K, *Xa.shape[1:])
+    ya_t = torch.from_numpy(ya).to(DEVICE).view(1 + GRAPH_STEPS, ACC_K, *ya.shape[1:])
+    # the pre-pass of a fresh network's batch norms runs one forward, then
+    # the warm-up and the capture K micro-batches each
+    pre_pass = [0, DW_LAYERS, 0, 0, BN_LAYERS]
+    out, launches["accumulate_step"] = captured_run(
+        "accumulate_step", lambda k: acc_pair[0].accumulate_step(xa[k], ya_t[k]),
+        1 + GRAPH_STEPS, [p + 2 * ACC_K * n for p, n in zip(pre_pass, step_launches)])
+    agree = Agreement()
+    for k, lg in enumerate(out):
+        agree.add(lg, acc_pair[1].accumulate_step(xa[k], ya_t[k]))
+    require(acc_pair[0].captures == 1, "the accumulate step's captures")
+    agree.trainers(*acc_pair)
+    held["accumulate_step"] = agree.verdict("accumulate_step, K={} x {}, {} replays".format(
+        ACC_K, BATCH, GRAPH_STEPS))
+    # --- kernel proof: a profile of one replay, every hand kernel of the
+    # step by name and no GEMM kernel (the eager twin takes the same step, so
+    # the two stay equal)
+    replay = {"step": require_replay_kernels(
+        "Trainer.step", lambda: graphed.step(xs[0], ys[0]), REPLAY_WANT)}
+    step_pair[1].step(xs[0], ys[0])
+    replay["step_augmented_indexed"] = require_replay_kernels(
+        "step_augmented_indexed", lambda: aug_step(aug_pair[0], rows[0]),
+        (("augment_band_kernel", 1),) + REPLAY_WANT)
+    replay["accumulate_step"] = require_replay_kernels(
+        "accumulate_step", lambda: acc_pair[0].accumulate_step(xa[0], ya_t[0]),
+        tuple((n, ACC_K * c) for n, c in REPLAY_WANT))
+    # --- a schedule between replays, then a hyperparameter change
+    schedule = StepDecay(TRAIN_LR, (1,), 0.1)
+    agree = Agreement()
+    for t_sched in range(2):
+        for t in step_pair:
+            schedule.apply(t.optimiser, t_sched)
+        (lg, _), (le, _) = (t.step(xs[t_sched], ys[t_sched]) for t in step_pair)
+        agree.add(lg, le)
+    require(graphed.captures == 1, "a schedule change captured a new graph")
+    agree.trainers(*step_pair)
+    held["schedule"] = agree.verdict("StepDecay {} -> {} between replays, no recapture".format(
+        schedule.lr_at(0), schedule.lr_at(1)))
+    for t in step_pair:
+        t.optimiser.momentum = 0.5
+    agree = Agreement()
+    for k in range(3):
+        (lg, _), (le, _) = (t.step(xs[k], ys[k]) for t in step_pair)
+        agree.add(lg, le)
+    require(graphed.captures == 2, "a momentum change did not capture a new graph")
+    agree.trainers(*step_pair)
+    held["recapture"] = agree.verdict("momentum 0.9 -> 0.5: graphs captured {}".format(
+        graphed.captures))
+    return (step_pair, aug_pair, acc_pair, launches, replay,
+            (xs, ys, aug_step, rows, xa, ya_t))
+
+
+def phase_remat(net):
+    """One eager step each of remat False, True and "blocks" from copies of
+    one set network: the loss, the step's peak memory, busy ms and launches."""
+    import copy
+
+    log("  remat: one eager step each from one state (batch {})".format(BATCH))
+    X, y = train_batches(33, 1, BATCH)
+    x, yy = torch.from_numpy(X[0]).to(DEVICE), torch.from_numpy(y[0]).to(DEVICE)
+    out, loss0 = {}, None
+    for remat in (False, True, "blocks"):
+        copied = copy.deepcopy(net)
+        t = Trainer(copied, SGDMomentum(copied, TRAIN_LR, 0.9), device=DEVICE, remat=remat,
+                    cuda_graph=False)
+        torch.cuda.synchronize()
+        reset_launches(TRAIN_KERNELS)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, _ = t.step(x, yy)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+        launches = [k.launches for k in TRAIN_KERNELS]
+        _, by_class, _, n_kernels = device_profile(lambda: t.step(x, yy), steps=1)
+        busy = sum(by_class.values())
+        loss = float(loss)
+        loss0 = loss if loss0 is None else loss0
+        out[str(remat)] = dict(peak_mb=peak, busy_ms=busy, kernels=n_kernels,
+                               launches=launches, loss=loss)
+        log("    remat={!s:<6}: loss {:.7f}, peak {:.1f} MB, busy {:.3f} ms, {} kernels, "
+            "launches forward/dx/dw/bn_stats {}".format(remat, loss, peak, busy, n_kernels,
+                                                       launches))
+        require(loss == loss0, "remat={} changed the loss".format(remat))
+        del t
+    # the blocks hold every depthwise layer and all but the stem's two batch norms
+    want = {"False": [DW_LAYERS] * 3 + [BN_LAYERS],
+            "True": [2 * DW_LAYERS] + [DW_LAYERS] * 2 + [2 * BN_LAYERS],
+            "blocks": [2 * DW_LAYERS] + [DW_LAYERS] * 2 + [2 * BN_LAYERS - 2]}
+    for remat, w in want.items():
+        require(out[remat]["launches"] == w, "remat={}: launches {} (want {})".format(
+            remat, out[remat]["launches"], w))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a "
@@ -2072,10 +2440,13 @@ def main():
     phase_train_times(trainer)
     del trainer
     aug = phase_augment_vs_plain()
-    aug_launches, aug_routes = phase_aug_slice()
-    mm, mm_stats = phase_gemm()
-    ab_launches, ab_routes = phase_bn_fuse_ab()
-    acc_launches = phase_accumulate()
+    with tempfile.TemporaryDirectory() as tmp:
+        aug_launches, aug_routes, dd = phase_aug_slice(os.path.join(tmp, "packed"))
+        mm, mm_stats = phase_gemm()
+        ab_launches, ab_routes = phase_bn_fuse_ab()
+        acc_launches = phase_accumulate()
+        graph_launches, replay, captured = phase_captured(dd)
+        del dd
 
     bound_ms, bound_by = flagship_bound_ms()
     dw_bound, dw_by = flagship_bound_ms(lambda C: 9 * C * 4)
@@ -2090,8 +2461,25 @@ def main():
 
     log("  launches: serving run forward {}; training run forward/dx/dw/bn_stats {}; augmented "
         "training run augment/forward/dx/dw/bn_stats {}; A/B run matmul/matmul_bn_stats/"
-        "bn_stats {}; accumulate run forward/dx/dw/bn_stats {}".format(
-            serve_launches, launches, aug_launches, ab_launches, acc_launches))
+        "bn_stats {}; accumulate run forward/dx/dw/bn_stats {}; captured runs "
+        "augment/forward/dx/dw/bn_stats {}".format(
+            serve_launches, launches, aug_launches, ab_launches, acc_launches, graph_launches))
+
+    def replayed(*names):
+        """A kernel's launches in one replay of each captured step whose
+        profile counted it, by name (the sum over ``names``: the GEMMs'
+        three kernels)."""
+        return {entry: sum(counts[n] for n in names) for entry, counts in replay.items()
+                if names[0] in counts}
+
+    def captured_run(i):
+        """AUG_KERNELS[i]'s launches in each captured trainer's own run."""
+        return {entry: counts[i] for entry, counts in graph_launches.items()}
+
+    captured_steps = {k: captured[k] for k in ("step", "step_augmented_indexed",
+                                                 "accumulate_step", "capture_seconds",
+                                                 "peak_mb", "pool_mb", "remat", "held")}
+    log(json.dumps({"captured_steps": captured_steps}))
     log(json.dumps({"kernels": [
         dict(name="depthwise3x3", route="cuda",
              source="dorknet_tpu_torch/csrc/depthwise3x3.cu",
@@ -2103,32 +2491,41 @@ def main():
              old_route_device_ms=fwd["device_scalar"], library_device_ms=fwd["device_cudnn"],
              bf16_device_ms=fwd["device_vector_bf16"],
              bf16_old_route_device_ms=fwd["device_scalar_bf16"],
-             bf16_library_device_ms=fwd["device_cudnn_bf16"], **folded),
+             bf16_library_device_ms=fwd["device_cudnn_bf16"],
+             captured_replay_launches=replayed("depthwise3x3_fwd_vec_kernel"),
+             captured_run_launches=captured_run(1), **folded),
         dict(name="depthwise3x3_dx", source="dorknet_tpu_torch/csrc/depthwise3x3_bwd.cu",
              launches=launches[1], max_abs_err=bwd_err["dx"], ms=bwd["dx"],
              plain_ms=bwd["dx_plain"], bound_ms=bound_ms, bound_by=bound_by,
              library_ms=bwd["dx_cudnn"], launches_by_route=train_routes[1],
-             **bwd_device("dx"), **entry),
+             captured_replay_launches=replayed("depthwise3x3_dx_vec_kernel"),
+             captured_run_launches=captured_run(2), **bwd_device("dx"), **entry),
         dict(name="depthwise3x3_dw", source="dorknet_tpu_torch/csrc/depthwise3x3_bwd.cu",
              launches=launches[2], max_abs_err=bwd_err["dw"], ms=bwd["dw"],
              plain_ms=bwd["dw_plain"], bound_ms=dw_bound, bound_by=dw_by,
              library_ms=bwd["dw_cudnn"], launches_by_route=train_routes[2],
-             **bwd_device("dw"), **entry),
+             captured_replay_launches=replayed("depthwise3x3_dw_vec_kernel"),
+             captured_run_launches=captured_run(3), **bwd_device("dw"), **entry),
         dict(name="augment_planes_fused", route="cuda",
              source="dorknet_tpu_torch/csrc/augment_planes.cu",
              replaces="dorknet_tpu/ops/pallas/augment.py:205", launches=aug_launches[0],
-             launches_by_route=aug_routes, library_ms=None, **aug),
+             launches_by_route=aug_routes, library_ms=None,
+             captured_replay_launches=replayed("augment_band_kernel"),
+             captured_run_launches=captured_run(0), **aug),
         dict(name="batch_norm_stats", route="cuda", source="dorknet_tpu_torch/csrc/bn_stats.cu",
              replaces="dorknet_tpu/ops/pallas/bn_stats.py:34", launches=launches[3],
-             max_abs_err=bn_err, **bn),
+             max_abs_err=bn_err, captured_replay_launches=replayed("bn_stats_partial_kernel"),
+             captured_run_launches=captured_run(4), **bn),
         dict(name="matmul", route="cuda", source="dorknet_tpu_torch/csrc/matmul.cu",
              tensor_core_source="dorknet_tpu_torch/csrc/matmul_sm90.cu",
              replaces="dorknet_tpu/ops/pallas/matmul.py:26", launches=ab_launches[0],
-             launches_by_route=ab_routes[0], **mm),
+             launches_by_route=ab_routes[0], captured_replay_launches=replayed(*GEMM_KERNELS),
+             **mm),
         dict(name="matmul_bn_stats", route="cuda", source="dorknet_tpu_torch/csrc/matmul.cu",
              tensor_core_source="dorknet_tpu_torch/csrc/matmul_sm90.cu",
              replaces="dorknet_tpu/ops/pallas/matmul.py:78", launches=ab_launches[1],
-             launches_by_route=ab_routes[1], **mm_stats),
+             launches_by_route=ab_routes[1], captured_replay_launches=replayed(*GEMM_KERNELS),
+             **mm_stats),
     ]}))
     log("card:", card_line())
     log("chip_smoke: {:.1f} s in all".format(time.perf_counter() - _START))

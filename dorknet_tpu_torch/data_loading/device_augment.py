@@ -11,7 +11,10 @@ the card a hand-written CUDA kernel, on the CPU its plain version.
 The random draws are split from the arithmetic. ``draw_batch_params`` and
 ``draw_mixup`` take an explicit ``torch.Generator`` and draw on its device;
 every other function takes the draws as tensors, so a test can hand the JAX
-package's own draws to both packages.
+package's own draws to both packages. Nothing here copies from the host or
+waits on the card, so ``Trainer`` captures the pipeline into the CUDA graph
+of its augmented step; the graph advances the caller's generator at every
+replay, as the eager draws do.
 
 The arithmetic is the JAX package's planes path: crop, cv2-matched HSV in
 fp32, the three-shear rotation with fp32 lerps and round-half-up back to
@@ -23,6 +26,7 @@ The per-image HWC/CHW oracle paths (``augment_image``, ``augment_batch``,
 ``internal_layout`` "HWC"/"CHW") are not ported (ROADMAP A5b).
 """
 
+import numpy as np
 import torch
 
 from dorknet_tpu_torch.config import get_compute_dtype
@@ -51,10 +55,13 @@ def draw_batch_params(generator, batch, precrop_hw, out_hw, hsv_pert_tuples=None
         p["crop_c"] = torch.randint(0, max(precrop_hw[1] - out_hw[1], 1), (batch,),
                                     generator=generator, device=dev)
     if hsv_pert_tuples is not None:
-        lo = torch.tensor([t[0] for t in hsv_pert_tuples], dtype=torch.float32, device=dev)
-        hi = torch.tensor([t[1] for t in hsv_pert_tuples], dtype=torch.float32, device=dev)
         u = torch.rand((batch, 3), generator=generator, device=dev)
-        p["hsv_scales"] = u * (hi - lo) + lo
+        # u * (hi - lo) + lo per channel, hi - lo rounded in fp32: Python
+        # scalars, since a host list copied to the card cannot be captured
+        # into a CUDA graph
+        bounds = [(np.float32(lo), np.float32(hi)) for lo, hi in hsv_pert_tuples]
+        p["hsv_scales"] = torch.stack([u[:, i] * float(hi - lo) + float(lo)
+                                       for i, (lo, hi) in enumerate(bounds)], dim=1)
     if rotation_tuple is not None:
         lo, hi = float(rotation_tuple[0]), float(rotation_tuple[1])
         u = torch.rand((batch,), generator=generator, device=dev)

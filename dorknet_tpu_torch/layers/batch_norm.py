@@ -7,7 +7,20 @@ gamma/beta are stored in the reference's broadcast shape, (1,C,1,1) for a
 the first training batch, a checkpoint or ``set_state`` provides them; a
 test-mode forward before that raises. A train-mode forward normalises by the
 batch statistics; the first one adopts them as the running stats, later ones
-fold them in with the running-std EMA at ``run_momentum`` (0.95)."""
+fold them in with the running-std EMA at ``run_momentum`` (0.95).
+
+Once they exist, the running stats are written in place (``copy_``), by
+training and by ``set_state`` alike, so they keep one address: a captured
+CUDA graph of a training step reads and writes the live buffers. Inside
+``running_stats_frozen(module)`` a train-mode forward of the module's batch
+norms normalises by the batch statistics and leaves the running stats as
+they are: a rematerialised forward (``Trainer(remat=...)``) recomputes a
+batch's activations in the backward, and must not fold its statistics in
+a second time. The switch is a flag on each layer, not a thread-local:
+the autograd engine runs a CUDA backward, and with it the recomputation,
+on a thread of its own."""
+
+import contextlib
 
 import numpy as np
 import torch
@@ -31,6 +44,7 @@ class BatchNormLayer(Layer):
         self.incoming_chans = incoming_chans
         self.register_buffer("running_mean", None)
         self.register_buffer("running_std", None)
+        self.stats_frozen = False  # set by running_stats_frozen
         if incoming_chans is not None:
             shape = self._state_shape()
             self.gamma = nn.Parameter(torch.ones(shape))
@@ -58,25 +72,37 @@ class BatchNormLayer(Layer):
     def set_state(self, tree):
         shape = self._state_shape()
         device = self.gamma.device
+        values = {}
         for name in ("running_mean", "running_std"):
             v = np.asarray(tree[name], dtype=np.float32)
             if v.shape != shape:
                 raise ValueError("{}/{}: expected shape {}, got {}".format(
                     self.layer_name, name, shape, v.shape))
-            setattr(self, name, torch.from_numpy(v.copy()).to(device))
+            values[name] = torch.from_numpy(v.copy())
+        self._write_running_stats(values["running_mean"], values["running_std"], device)
+
+    def _write_running_stats(self, mean, std, device):
+        """Copy into the running stats where they exist; else make them (a
+        fresh layer's adoption, an ordinary Python branch)."""
+        shape = self._state_shape()
+        with torch.no_grad():
+            if self.running_mean is None:
+                self.running_mean = mean.reshape(shape).to(device)
+                self.running_std = std.reshape(shape).to(device)
+            else:
+                self.running_mean.copy_(mean.reshape(shape))
+                self.running_std.copy_(std.reshape(shape))
 
     def fapply(self, x, train=False):
         if train:
+            fold = self.bn_initialized() and not self.stats_frozen
             y, mean, std = batch_norm_train(
                 x, self.gamma.reshape(-1), self.beta.reshape(-1),
-                None if self.running_mean is None else self.running_mean.reshape(-1),
-                None if self.running_std is None else self.running_std.reshape(-1),
-                momentum=self.run_momentum, eps=self.eps,
-                initialized=self.bn_initialized())
-            shape = self._state_shape()
-            with torch.no_grad():
-                self.running_mean = mean.reshape(shape)
-                self.running_std = std.reshape(shape)
+                self.running_mean.reshape(-1) if fold else None,
+                self.running_std.reshape(-1) if fold else None,
+                momentum=self.run_momentum, eps=self.eps, initialized=fold)
+            if not self.stats_frozen:
+                self._write_running_stats(mean, std, x.device)
             return y
         if self.running_mean is None:
             raise ValueError(
@@ -103,3 +129,17 @@ class BatchNormLayer(Layer):
         self.beta = nn.Parameter(read("beta"))
         self.running_mean = read("running_mean")
         self.running_std = read("running_std")
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module):
+    """Inside, the train-mode batch norms of ``module`` (any nn.Module) leave
+    their running stats unchanged."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNormLayer)]
+    for layer in layers:
+        layer.stats_frozen = True
+    try:
+        yield
+    finally:
+        for layer in layers:
+            layer.stats_frozen = False

@@ -13,7 +13,9 @@ reference's accounting, which leaves out the skip projections' terms
 (``ResidualBlock.reg_loss``). Weights come from a reference h5+json
 checkpoint (``load_network_from_json_and_h5``), from the seeded constructors
 (bit-equal to the JAX package's under the same ``np.random.seed``), or from
-the JAX network's own trees (``load_numpy_params``).
+the JAX network's own trees (``load_numpy_params``). ``_version`` counts
+changes to the layer list and the loss layer, as the JAX network's does; a
+trainer keys its captured steps on it.
 """
 
 import json
@@ -44,6 +46,9 @@ class FeedForwardNetwork(nn.Module):
         self.layers = nn.ModuleList()
         self.loss_layer = None
         self._pending_grads = None
+        # shadows nn.Module's class attribute, which only labels this
+        # module's own entry of a state_dict's metadata
+        self._version = 0
 
     def __repr__(self):
         out = "{}: \n".format(self.name)
@@ -53,9 +58,11 @@ class FeedForwardNetwork(nn.Module):
 
     def add_layer(self, layer):
         self.layers.append(layer)
+        self._version += 1
 
     def set_loss_layer(self, loss_layer):
         self.loss_layer = loss_layer
+        self._version += 1
 
     def device(self):
         """The device of the parameters (CPU for a network without any)."""
@@ -63,13 +70,15 @@ class FeedForwardNetwork(nn.Module):
         return p.device if p is not None else torch.device("cpu")
 
     # ------------------------------------------------------------------ #
-    def _run_layers(self, x, train=False):
+    def _run_layers(self, x, train=False, layer_wrap=None):
         """Every layer's fapply over NHWC x. Returns (out, reported_reg,
         full_reg): the regularisation terms are summed in train mode only
-        (0.0 otherwise)."""
+        (0.0 otherwise). layer_wrap(layer, fapply) may return a transformed
+        apply (the trainer's per-block rematerialisation)."""
         reported_reg = full_reg = 0.0
         for l in self.layers:
-            x = l.fapply(x, train)
+            apply = l.fapply if layer_wrap is None else layer_wrap(l, l.fapply)
+            x = apply(x, train)
             if train:
                 reported_reg = reported_reg + l.reg_loss()
                 full_reg = full_reg + l.reg_loss_full()
@@ -92,13 +101,18 @@ class FeedForwardNetwork(nn.Module):
             out, _, _ = self._run_layers(x, train=True)
         return out
 
-    def _loss_and_grads(self, x, y_one_hot, params):
+    def _loss_and_grads(self, x, y_one_hot, params, run=None):
         """One training forward and backward over NHWC x. Returns (loss,
         probs, grads): the reported loss (detached), the softmax probs, and
         the gradient of data loss + every regularisation term for each of
-        ``params``, in that order. Batch norm's running stats are updated."""
+        ``params``, in that order. Batch norm's running stats are updated.
+        run(x) -> (out, reported_reg, full_reg) replaces the train-mode
+        ``_run_layers`` (the trainer's rematerialised forward)."""
         with torch.enable_grad():
-            out, reported_reg, full_reg = self._run_layers(x, train=True)
+            if run is None:
+                out, reported_reg, full_reg = self._run_layers(x, train=True)
+            else:
+                out, reported_reg, full_reg = run(x)
             data_loss, probs = self.loss_layer.fapply_loss(out, y_one_hot)
             grads = torch.autograd.grad(data_loss + full_reg, params,
                                         allow_unused=True)
@@ -197,8 +211,8 @@ class FeedForwardNetwork(nn.Module):
             for layer_name in json_structure:
                 l_type = f[layer_name + "/layer_info"].attrs["type"]
                 if l_type == "SoftmaxWithCrossEntropy":
-                    self.loss_layer = SoftmaxWithCrossEntropy(layer_name)
+                    self.set_loss_layer(SoftmaxWithCrossEntropy(layer_name))
                     continue
                 l = get_layer_class(l_type)(layer_name)
                 l.load_from_h5(f)
-                self.layers.append(l)
+                self.add_layer(l)

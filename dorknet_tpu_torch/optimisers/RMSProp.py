@@ -14,11 +14,13 @@ class RMSProp(Optimiser):
         super().__init__(network, learning_rate)
         self.decay_rate = decay_rate
 
+    def hyper_key(self):
+        return (float(self.decay_rate),)
+
     def apply_update(self, params, grads, cache, lr):
         d = self.decay_rate
-        new_cache = torch._foreach_mul(cache, d)
-        torch._foreach_add_(new_cache, torch._foreach_mul(torch._foreach_mul(grads, grads),
-                                                          1.0 - d))
-        denom = torch._foreach_sqrt(torch._foreach_add(new_cache, 1e-5))
+        torch._foreach_mul_(cache, d)
+        torch._foreach_add_(cache, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - d))
+        denom = torch._foreach_sqrt(torch._foreach_add(cache, 1e-5))
         torch._foreach_sub_(params, torch._foreach_div(torch._foreach_mul(grads, lr), denom))
-        return new_cache
+        return cache

@@ -14,8 +14,12 @@ class SGDMomentum(Optimiser):
         super().__init__(network, learning_rate)
         self.momentum = momentum
 
+    def hyper_key(self):
+        return (float(self.momentum),)
+
     def apply_update(self, params, grads, cache, lr):
-        dx = torch._foreach_mul(grads, -lr)
-        torch._foreach_add_(dx, torch._foreach_mul(cache, self.momentum))
-        torch._foreach_add_(params, dx)
-        return dx
+        step = torch._foreach_mul(grads, -lr)
+        torch._foreach_mul_(cache, self.momentum)
+        torch._foreach_add_(cache, step)  # v = momentum * v - lr * g, in place
+        torch._foreach_add_(params, cache)
+        return cache

@@ -183,7 +183,7 @@ def test_folded_serving_predict_iter_and_export_on_card(cuda, tmp_path):
 
 
 def test_trainer_step_on_card_matches_cpu(cuda):
-    """ResNet18 at full width, fresh BN, two Trainer.steps (clip 1.0, EMA
+    """ResNet18 at full width, fresh BN, two eager Trainer.steps (clip 1.0, EMA
     0.9) at batch 4 at the flagship's 225 px on the card and on the CPU
     (fp32, TF32 off): per-step loss within 1e-4 relative, parameters within
     1e-4 relative / 1e-5 absolute, and every step launched the forward, dx
@@ -201,7 +201,9 @@ def test_trainer_step_on_card_matches_cpu(cuda):
     net_gpu = ResNet18("dogs", num_classes=120)
     args = dict(ema_decay=0.9, clip_norm=1.0)
     t_cpu = Trainer(net_cpu, SGDMomentum(net_cpu, 0.001, 0.9), device="cpu", **args)
-    t_gpu = Trainer(net_gpu, SGDMomentum(net_gpu, 0.001, 0.9), device=cuda, **args)
+    # eager: a captured step is a replay, which moves no launch counter
+    t_gpu = Trainer(net_gpu, SGDMomentum(net_gpu, 0.001, 0.9), device=cuda, cuda_graph=False,
+                    **args)
     rng = np.random.RandomState(1)
     for _ in range(2):
         X = rng.randn(4, 3, 225, 225).astype(np.float32)
@@ -434,7 +436,7 @@ def test_matmul_kernels_refuse_what_they_do_not_take(cuda):
 
 
 def test_accumulate_step_on_card_matches_cpu(cuda):
-    """ResNet18 at full width, fresh BN, one accumulate_step of K = 2
+    """ResNet18 at full width, fresh BN, one eager accumulate_step of K = 2
     micro-batches of 2 at 65 px on the card and on the CPU: the mean loss
     within 1e-4 relative (computed before the update, from the same
     weights); the BN pre-pass and the two micro-batches launch
@@ -445,7 +447,7 @@ def test_accumulate_step_on_card_matches_cpu(cuda):
     np.random.seed(0)
     net_gpu = ResNet18("dogs", num_classes=120)
     t_cpu = Trainer(net_cpu, SGDMomentum(net_cpu, 0.001, 0.9), device="cpu")
-    t_gpu = Trainer(net_gpu, SGDMomentum(net_gpu, 0.001, 0.9), device=cuda)
+    t_gpu = Trainer(net_gpu, SGDMomentum(net_gpu, 0.001, 0.9), device=cuda, cuda_graph=False)
     rng = np.random.RandomState(5)
     X = rng.randn(2, 2, 3, 65, 65).astype(np.float32)
     y = np.eye(120, dtype=np.float32)[rng.randint(0, 120, (2, 2))]
@@ -737,3 +739,205 @@ def test_gemm_entry_point_refuses_what_the_pipelined_route_cannot_take(cuda):
         with pytest.raises(RuntimeError, match="invalid argument"):
             launch_matmul(a, b, "cuda_core_pipelined")
     assert matmul.launches_by_route == before
+
+
+# ---------------------------------------------------------------------- #
+# Captured steps: Trainer's CUDA graphs against its eager steps
+# ---------------------------------------------------------------------- #
+def _graph_net(seed):
+    """Stem conv, BN, ReLU, one residual block (a stride-2 depthwise, a
+    pointwise and a skip projection, every batch norm), GAP, dense to 5
+    classes: every kernel of the training step at a small size."""
+    from dorknet_tpu_torch import layers as L
+    from dorknet_tpu_torch.network import FeedForwardNetwork
+
+    np.random.seed(seed)
+    net = FeedForwardNetwork("graph")
+    net.add_layer(L.ConvLayer("conv0", filter_block_shape=(8, 3, 3, 3), stride=2, padding=1,
+                              with_bias=False))
+    net.add_layer(L.BatchNormLayer("conv0_bn", incoming_chans=8))
+    net.add_layer(L.ReLu("conv0_relu"))
+    net.add_layer(L.ResidualBlock("res", layer_list=[
+        L.DepthwiseConvLayer("res_dw", filter_block_shape=(8, 3, 3), stride=2, with_bias=False),
+        L.BatchNormLayer("res_dw_bn", incoming_chans=8),
+        L.PointwiseConvLayer("res_pw", filter_block_shape=(16, 8), with_bias=False),
+        L.BatchNormLayer("res_pw_bn", incoming_chans=16)],
+        skip_projection=L.PointwiseConvLayer("res_skip", filter_block_shape=(16, 8), stride=2,
+                                             with_bias=False),
+        post_skip_activation=L.ReLu("res_relu")))
+    net.add_layer(L.GlobalAveragePoolingLayer("gap"))
+    net.add_layer(L.DenseLayer("dense", incoming_chans=16, output_dim=5))
+    net.set_loss_layer(L.SoftmaxWithCrossEntropy("loss"))
+    return net
+
+
+def _graph_pair(cuda, **kwargs):
+    """A captured and an eager trainer from the same weights."""
+    return [Trainer(net, SGDMomentum(net, 0.05, 0.9), device=cuda, ema_decay=0.9,
+                    clip_norm=1.0, cuda_graph=flag, **kwargs)
+            for net, flag in ((_graph_net(70), True), (_graph_net(70), False))]
+
+
+def _assert_same_training(a, b):
+    """Parameters, running stats and EMA of two trainers, within the
+    training slice's tolerance (1e-4 relative, 1e-5 absolute; bit-equal
+    unless cuBLAS picks another algorithm under capture)."""
+    def stats(t):
+        return [b for m in t.network.modules() if hasattr(m, "running_std")
+                for b in (m.running_mean, m.running_std)]
+
+    pairs = (list(zip(a.network.parameters(), b.network.parameters(), strict=True))
+             + list(zip(stats(a), stats(b), strict=True))
+             + list(zip(a._ema, b._ema, strict=True)))
+    for x, y in pairs:
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
+
+
+def _graph_batches(seed, steps, B=4, hw=17, classes=5):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(steps, B, 3, hw, hw).astype(np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.randint(0, classes, (steps, B))]
+    return X, y
+
+
+def test_captured_step_and_multi_step_equal_eager_steps(cuda):
+    """Five steps from fresh batch norms: the first adopts (eager), the
+    second warms up and captures, the rest replay; host arrays and device
+    tensors as inputs; then a multi_step of three replays."""
+    graphed, eager = _graph_pair(cuda)
+    X, y = _graph_batches(71, 8)
+    for k in range(5):
+        Xk, yk = (X[k], y[k]) if k % 2 else (torch.from_numpy(X[k]).to(cuda),
+                                               torch.from_numpy(y[k]).to(cuda))
+        lg, pg = graphed.step(Xk, yk)
+        le, pe = eager.step(Xk, yk)
+        torch.testing.assert_close(lg, le, rtol=1e-5, atol=0)
+        assert torch.equal(pg, pe)
+    assert graphed.captures == 1 and eager.captures == 0
+    lg, pg = graphed.multi_step(X[5:], y[5:])
+    le, pe = eager.multi_step(X[5:], y[5:])
+    torch.testing.assert_close(lg, le, rtol=1e-5, atol=0)
+    assert graphed.captures == 1
+    _assert_same_training(graphed, eager)
+
+
+def test_replayed_outputs_are_copies(cuda):
+    graphed, _ = _graph_pair(cuda)
+    X, y = _graph_batches(72, 4)
+    out = [graphed.step(X[k], y[k]) for k in range(4)]
+    torch.cuda.synchronize()
+    losses = [float(loss) for loss, _ in out]
+    assert len(set(losses)) == 4 and graphed.captures == 1
+
+
+def test_captured_accumulate_step_equals_eager(cuda):
+    graphed, eager = _graph_pair(cuda)
+    X, y = _graph_batches(73, 8)
+    for call in range(4):
+        sl = slice(2 * call, 2 * call + 2)
+        lg, le = graphed.accumulate_step(X[sl], y[sl]), eager.accumulate_step(X[sl], y[sl])
+        torch.testing.assert_close(lg, le, rtol=1e-5, atol=0)
+    assert graphed.captures == 1
+    _assert_same_training(graphed, eager)
+
+
+@pytest.mark.parametrize("indexed", [False, True], ids=["direct", "indexed"])
+def test_captured_augmented_steps_draw_as_eager_steps(cuda, indexed):
+    """K replayed augmented steps from generator seed s draw what K eager
+    steps from seed s draw (the graph advances the caller's generator), with
+    mixup; then the multi-step form."""
+    graphed, eager = _graph_pair(cuda)
+    aug = dict(AUG_CFG, mixup=(0.0, 0.3))
+    images = _precrop_batch(cuda, 24, 24, 24, 74)
+    labels = torch.from_numpy(np.random.RandomState(75).randint(0, 5, 24)).int().to(cuda)
+    rows = np.random.RandomState(76).randint(0, 24, (8, 4))
+    losses = []
+    for t in (graphed, eager):
+        gen = torch.Generator(device=cuda).manual_seed(77)
+        out = []
+        for k in range(5):
+            if indexed:
+                out.append(t.step_augmented_indexed(gen, images, labels, rows[k], (17, 17), 5,
+                                                    **aug)[0])
+            else:
+                Xk = images[torch.from_numpy(rows[k]).to(cuda)]
+                yk = torch.nn.functional.one_hot(labels[torch.from_numpy(rows[k]).to(cuda)]
+                                                 .long(), 5).float()
+                out.append(t.step_augmented(gen, Xk, yk, (17, 17), **aug)[0])
+        if indexed:
+            out.extend(t.multi_step_augmented_indexed(gen, images, labels, rows[5:], (17, 17), 5,
+                                                      **aug)[0])
+        else:
+            Xs = images[torch.from_numpy(rows[5:]).to(cuda)]
+            ys = torch.nn.functional.one_hot(labels[torch.from_numpy(rows[5:]).to(cuda)]
+                                             .long(), 5).float()
+            out.extend(t.multi_step_augmented(gen, Xs, ys, (17, 17), **aug)[0])
+        losses.append(torch.stack(out))
+    torch.testing.assert_close(losses[0], losses[1], rtol=1e-5, atol=0)
+    assert graphed.captures == 1
+    _assert_same_training(graphed, eager)
+
+
+def test_schedule_change_reaches_the_replay_without_recapture(cuda):
+    from dorknet_tpu_torch.utils.schedules import StepDecay
+
+    graphed, eager = _graph_pair(cuda)
+    X, y = _graph_batches(78, 6)
+    schedule = StepDecay(0.05, (3, 4), 0.1)
+    for k in range(6):
+        for t in (graphed, eager):
+            schedule.apply(t.optimiser, k)
+            t.step(X[k], y[k])
+    assert graphed.captures == 1
+    _assert_same_training(graphed, eager)
+
+
+def test_hyper_change_captures_a_new_graph(cuda):
+    graphed, eager = _graph_pair(cuda)
+    X, y = _graph_batches(79, 6)
+    for k in range(6):
+        if k == 3:
+            graphed.optimiser.momentum = eager.optimiser.momentum = 0.5
+        graphed.step(X[k], y[k])
+        eager.step(X[k], y[k])
+    assert graphed.captures == 2
+    _assert_same_training(graphed, eager)
+
+
+def test_remat_steps_capture_and_equal_eager(cuda):
+    for remat in (True, "blocks"):
+        graphed, eager = _graph_pair(cuda, remat=remat)
+        X, y = _graph_batches(80, 4)
+        for k in range(4):
+            torch.testing.assert_close(graphed.step(X[k], y[k])[0], eager.step(X[k], y[k])[0],
+                                       rtol=1e-5, atol=0)
+        assert graphed.captures == 1
+        _assert_same_training(graphed, eager)
+
+
+def test_a_capture_that_fails_raises(cuda):
+    """A layer that waits on the card in train mode cannot be captured: the
+    capture raises after its warm-up step, and the next call raises without
+    taking a step; no step quietly runs eagerly in its place."""
+    from dorknet_tpu_torch.layers.base import Layer
+
+    class Waits(Layer):
+        def fapply(self, x, train=False):
+            if train:
+                float(x.detach().sum())
+            return x
+
+    graphed, _ = _graph_pair(cuda)
+    graphed.network.layers.insert(3, Waits("waits"))
+    X, y = _graph_batches(81, 3)
+    graphed.step(X[0], y[0])  # fresh batch norms: eager
+    with pytest.raises(RuntimeError, match="warm-up step was applied"):
+        graphed.step(X[1], y[1])
+    torch.cuda.synchronize()
+    after_warm_up = [p.detach().clone() for p in graphed.network.parameters()]
+    with pytest.raises(RuntimeError, match="no step was taken"):
+        graphed.step(X[2], y[2])
+    torch.cuda.synchronize()
+    for p, q in zip(graphed.network.parameters(), after_warm_up, strict=True):
+        assert torch.equal(p, q)
+    assert graphed.captures == 0

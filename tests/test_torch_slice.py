@@ -191,6 +191,7 @@ def test_port_imports_no_jax():
             "import dorknet_tpu_torch.utils.fold_bn, dorknet_tpu_torch.serving_artifact\n"
             "import dorknet_tpu_torch.examples.serving_demo\n"
             "import dorknet_tpu_torch.tools.export_serving\n"
+            "import dorknet_tpu_torch.utils.schedules\n"
             "bad = [m for m in ('jax', 'h5py', 'cv2', 'dorknet_tpu') if m in sys.modules]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
