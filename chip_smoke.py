@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths and its kernels' A/B
-once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving and training paths, its checkpoints and
+its flagship training script, and its kernels' A/B once on one NVIDIA GPU
+and check them.
 
 Usage, from the root of a checkout, on a machine with a CUDA card, nvcc and
 nvidia-smi:
@@ -139,7 +140,31 @@ Phases (each checks its results; any failure ends the run non-zero with no
     busy ms, kernels, wrapper launches and idle share from a profile, and
     each capture's seconds), a step's peak memory and the graph pool's
     size; one eager step each of ``remat`` False, True and "blocks"
-    (equal losses, peak memory, busy ms, launches).
+    (equal losses, peak memory, busy ms, launches);
+14. checkpoints, validation and the flagship script, each run with the
+    launch counts set to 0 just before it and read just after:
+    14a. a captured flagship trainer (``Trainer.step`` at batch 64, EMA,
+    deterministic cuDNN) saved by ``utils/torch_io.save_checkpoint`` after
+    two steps, two more steps taken (the first recorded), the file loaded
+    into the same live trainer: the replay that follows bit-equal to the
+    recorded step (loss, every parameter, running stat, momentum and EMA
+    tensor), every ``data_ptr()`` kept and no new graph; a fresh network
+    and trainer restored from the file take a bit-equal step; an async save
+    holds the state of its call while two steps run; bytes and save, load
+    and async seconds;
+    14b. ``FeedForwardNetwork.test`` over a packed validation set (240
+    canvases) through the threaded loader (center crop, batch 60): the
+    card's accuracy equal to a CPU twin's, 16 depthwise forward launches a
+    batch and no other kernel, val img/s;
+    14c. the twin of the flagship script
+    (``dorknet_tpu_torch/examples/imagenet_dogs_225_resnet_18_depsep.py``)
+    run through ``runpy`` with ``DORKNET_DEVICE_RESIDENT=1`` and
+    ``DORKNET_CKPT_FORMAT=torch`` on phase 10's packed canvases and 14b's
+    validation set: 225 px, batch 60, two epochs of eight steps, EMA 0.999,
+    then a restart from epoch 1's checkpoint for one epoch; each epoch's
+    ``.pt`` files, the metrics JSONL (``device_resident``, finite losses,
+    ``test_acc`` in [0, 1]), every kernel of the path launched, and the
+    script's own img/s beside 13b's captured step's.
 
 The line before the last is a JSON object of the kernels of the paths (with
 each kernel's launches by route, and both routes' times, device times
@@ -147,16 +172,21 @@ included; the depthwise forward's entry also carries its launches in the
 folded served run and in the reloaded programs' runs; every entry its
 launches in one replay of each captured step, by name in the profile, and
 the training kernels their wrapper launches over phase 13b's driven
-steps); a JSON object of phase 13b's numbers comes before it; the last line is
+steps, and every entry its launches in each run of phase 14); JSON objects
+of phase 13b's and phase 14's numbers come before it; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
 
+import contextlib
+import copy
+import io
 import json
 import os
 import re
 import shutil
 import statistics
+import runpy
 import subprocess
 import sys
 import tempfile
@@ -168,7 +198,8 @@ import torch
 import torch.nn.functional as F
 
 from dorknet_tpu_torch import config
-from dorknet_tpu_torch.data_loading import (DeviceResidentDataset, draw_batch_params,
+from dorknet_tpu_torch.data_loading import (DeviceResidentDataset, ImageDataLoader,
+                                            ImagePreprocessor, draw_batch_params,
                                             train_pipeline, write_packed_arrays)
 from dorknet_tpu_torch.layers.base import to_nhwc
 from dorknet_tpu_torch.models import ResNet18
@@ -191,8 +222,9 @@ from dorknet_tpu_torch.ops.cuda.matmul import (
     matmul_bn_stats, matmul_bn_stats_plain, matmul_plain)
 from dorknet_tpu_torch.optimisers import SGDMomentum
 from dorknet_tpu_torch.serving_artifact import deserialize
-from dorknet_tpu_torch.utils import bn_fuse_ab
+from dorknet_tpu_torch.utils import bn_fuse_ab, torch_io
 from dorknet_tpu_torch.utils.autotune import measure_device_ms
+from dorknet_tpu_torch.utils.metrics import read_metrics
 from dorknet_tpu_torch.utils.seeded import seed_serving_weights
 
 DEVICE = "cuda"
@@ -2373,8 +2405,6 @@ def captured_parity(dd, held):
 def phase_remat(net):
     """One eager step each of remat False, True and "blocks" from copies of
     one set network: the loss, the step's peak memory, busy ms and launches."""
-    import copy
-
     log("  remat: one eager step each from one state (batch {})".format(BATCH))
     X, y = train_batches(33, 1, BATCH)
     x, yy = torch.from_numpy(X[0]).to(DEVICE), torch.from_numpy(y[0]).to(DEVICE)
@@ -2412,6 +2442,258 @@ def phase_remat(net):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# Phase 14: checkpoints, validation and the flagship script
+# --------------------------------------------------------------------------- #
+VAL_IMAGES = 2 * NUM_CLASSES  # the packed validation set of 14b and 14c
+TWIN_STEPS = 8  # training steps an epoch of the flagship script in 14c
+TWIN = "dorknet_tpu_torch.examples.imagenet_dogs_225_resnet_18_depsep"
+
+
+def write_val_set(path):
+    """VAL_IMAGES canvases of PRECROP x PRECROP, two a class, made like the
+    training set."""
+    labels = np.repeat(np.arange(NUM_CLASSES), VAL_IMAGES // NUM_CLASSES)
+    write_packed_arrays(path, dataset_rows(labels), labels,
+                        ["class{:03d}".format(c) for c in range(NUM_CLASSES)])
+
+
+def live_state(trainer):
+    """Every parameter, running stat, optimiser-cache and EMA tensor."""
+    return training_state(trainer) + list(trainer._cache)
+
+
+def require_bit_equal(what, got, want):
+    require(len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want)),
+            "{}: not bit-equal".format(what))
+
+
+def phase_checkpoint(tmp):
+    """Phase 14a: torch_io checkpoints of a captured flagship trainer,
+    restored in place under its graph. Returns the kernels' launches over the
+    phase and its numbers."""
+    log("== phase 14a: a torch-native checkpoint restored in place under the captured step, "
+        "ResNet18 at full width, batch {}, SGDMomentum, EMA 0.999, deterministic "
+        "cuDNN".format(BATCH))
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.synchronize()
+    reset_launches(AUG_KERNELS)
+    try:
+        (trainer,) = graph_pair(flags=(True,))
+        X, y = train_batches(41, 6, BATCH)
+        xs, ys = torch.from_numpy(X).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+        for k in range(2):  # adoption, then warm-up and capture
+            trainer.step(xs[k], ys[k])
+        path = os.path.join(tmp, "step2.pt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch_io.save_checkpoint(path, trainer.network, trainer)
+        out["save_s"] = time.perf_counter() - t0
+        out["bytes"] = os.path.getsize(path)
+        loss3, preds3 = trainer.step(xs[2], ys[2])  # a replay
+        want = [t.clone() for t in live_state(trainer)]
+        trainer.step(xs[3], ys[3])
+        ptrs = [t.data_ptr() for t in live_state(trainer)]
+        graphs, captures = len(trainer._graphs), trainer.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch_io.load_checkpoint(path, trainer.network, trainer)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        require([t.data_ptr() for t in live_state(trainer)] == ptrs,
+                "the load moved a tensor the captured step reads")
+        loss, preds = trainer.step(xs[2], ys[2])
+        require(len(trainer._graphs) == graphs and trainer.captures == captures,
+                "the restored trainer captured a new graph")
+        require(torch.equal(loss, loss3) and torch.equal(preds, preds3),
+                "the replay after the load gave another loss")
+        require_bit_equal("the replay after the load", live_state(trainer), want)
+        log("  {} bytes ({:.2f} MB), saved in {:.3f} s, loaded in place in {:.3f} s; the "
+            "replay after the load bit-equal to the recorded step 3 (loss {:.7f}), every "
+            "data_ptr kept, graphs {} and captures {} unchanged".format(
+                out["bytes"], out["bytes"] / 1e6, out["save_s"], out["load_s"], float(loss),
+                graphs, captures))
+        # a fresh network and trainer restored from the file: its first step,
+        # a warm-up and a capture, is the recorded step 3
+        (fresh,) = graph_pair(flags=(True,))
+        torch_io.load_checkpoint(path, fresh.network, fresh)
+        loss_f, _ = fresh.step(xs[2], ys[2])
+        require(torch.equal(loss_f, loss3), "a fresh restored trainer took another step")
+        require_bit_equal("a fresh restored trainer's step", live_state(fresh), want)
+        log("  a fresh network and trainer restored from the file: the next step bit-equal")
+        del fresh
+        # async: the file holds the state of the call, not of the steps
+        # taken while it is written
+        at_save = [t.clone() for t in live_state(trainer)]
+        apath = os.path.join(tmp, "async.pt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckptr = torch_io.save_checkpoint_async(apath, trainer.network, trainer)
+        out["async_return_s"] = time.perf_counter() - t0
+        for k in range(4, 6):
+            trainer.step(xs[k], ys[k])
+        ckptr.wait_until_finished()
+        out["async_total_s"] = time.perf_counter() - t0
+        torch_io.load_checkpoint(apath, trainer.network, trainer)
+        require_bit_equal("the async checkpoint", live_state(trainer), at_save)
+        log("  async save: returned in {:.3f} s, two steps taken while it wrote, on disk "
+            "after {:.3f} s; the file holds the state of the call".format(
+                out["async_return_s"], out["async_total_s"]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    launches = [k.launches for k in AUG_KERNELS]
+    log("  launches over the phase augment/forward/dx/dw/bn_stats {}".format(launches))
+    return trainer.network, launches, out
+
+
+def phase_network_test(net, val_path):
+    """Phase 14b: network.test over the packed validation set through the
+    threaded loader (center crop), on the card and on a CPU twin. Returns
+    the kernels' launches in the card's run and its numbers."""
+    log("== phase 14b: FeedForwardNetwork.test on the card, {} validation canvases, batch {}, "
+        "center crop".format(VAL_IMAGES, AUG_BATCH))
+    n_batches = VAL_IMAGES // AUG_BATCH
+    pp = ImagePreprocessor(AUG_OUT, crop_mode="center")
+    acc, seconds = {}, {}
+    cpu_net = copy.deepcopy(net).to("cpu")
+    for which, network in (("cuda", net), ("cpu", cpu_net)):
+        loader = ImageDataLoader(val_path, AUG_BATCH, pp, num_workers=4)
+        try:
+            if which == "cuda":
+                torch.cuda.synchronize()
+                reset_launches(AUG_KERNELS)
+            t0 = time.perf_counter()
+            acc[which] = network.test(loader.pull_batch(n_batches), AUG_BATCH, VAL_IMAGES)
+            seconds[which] = time.perf_counter() - t0
+            if which == "cuda":
+                torch.cuda.synchronize()
+                launches = [k.launches for k in AUG_KERNELS]
+        finally:
+            loader.stop_thread()
+    log("  accuracy: card {}, CPU twin {}; card {:.3f} s = {:.1f} val img/s (host clock, the "
+        "loader included), CPU {:.3f} s; launches augment/forward/dx/dw/bn_stats {}".format(
+            acc["cuda"], acc["cpu"], seconds["cuda"], VAL_IMAGES / seconds["cuda"],
+            seconds["cpu"], launches))
+    require(acc["cuda"] == acc["cpu"], "network.test: the card's accuracy differs from the CPU's")
+    require(launches == [0, DW_LAYERS * n_batches, 0, 0, 0],
+            "network.test: want {} depthwise forward launches and no other".format(
+                DW_LAYERS * n_batches))
+    require_vector_route("network.test")
+    return launches, dict(test_acc=acc["cuda"], seconds=seconds["cuda"],
+                          val_img_s=VAL_IMAGES / seconds["cuda"])
+
+
+def run_twin(env):
+    """The flagship script's __main__ with ``env`` set, then unset; returns
+    its module globals. Its standard output (the network's repr) is
+    dropped; its log goes to standard error."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            return runpy.run_module(TWIN, run_name="__main__")
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_twin(tmp, train_path, val_path, captured_img_s):
+    """Phase 14c: the twin of the flagship script run on the card
+    (resident dataset, torch checkpoints), two epochs, then a restart from
+    epoch 1's checkpoint for one. Returns the kernels' launches in the first
+    run and its numbers."""
+    log("== phase 14c: the flagship script's __main__ on the card, DORKNET_DEVICE_RESIDENT=1, "
+        "DORKNET_CKPT_FORMAT=torch, 225 px, batch {}, {} steps an epoch".format(
+            AUG_BATCH, TWIN_STEPS))
+    dogs = os.path.join(tmp, "dogs", "ImageNet2012", "ILSVRC2012_dogs")
+    os.makedirs(dogs)
+    os.symlink(train_path, os.path.join(dogs, "train_img"))
+    os.symlink(val_path, os.path.join(dogs, "val_img"))
+    env = {"DORKNET_DATA": os.path.join(tmp, "dogs"), "DORKNET_DEVICE_RESIDENT": "1",
+           "DORKNET_CKPT_FORMAT": "torch", "DORKNET_IMAGE": str(AUG_OUT[0]),
+           "DORKNET_BATCH": str(AUG_BATCH), "DORKNET_EPOCHS": "3",
+           "DORKNET_TRAIN_SIZE": str(2 * AUG_BATCH * TWIN_STEPS),
+           "DORKNET_VAL_SIZE": str(VAL_IMAGES), "DORKNET_WORKERS": "4",
+           "DORKNET_EMA": "0.999", "DORKNET_EXPERIMENT": "ChipDogs"}
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        torch.cuda.synchronize()
+        reset_launches(AUG_KERNELS)
+        t0 = time.perf_counter()
+        run = run_twin(env)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = [k.launches for k in AUG_KERNELS]
+        captures = run["trainer"].captures
+        del run
+        exp = os.path.join(tmp, "ChipDogs")
+        files = sorted(os.listdir(exp))
+        log("  two epochs in {:.1f} s (script, upload and checkpoints included); graphs "
+            "captured {}; launches augment/forward/dx/dw/bn_stats {}; files {}".format(
+                seconds, captures, launches, files))
+        ckpt = {e: [f for f in files if f.startswith("epoch_{}_testacc_".format(e))
+                    and f.endswith(".pt")] for e in (1, 2)}
+        require(all(len(v) == 1 for v in ckpt.values()), "an epoch's .pt checkpoint is missing")
+        require(all(os.path.exists(os.path.join(exp, "epoch_{}_ema.pt".format(e)))
+                    for e in (1, 2)), "an epoch's EMA checkpoint is missing")
+        require(all(k > 0 for k in launches), "a kernel of the script's path never launched")
+        metrics_path = os.path.join(tmp, "logging", "ChipDogs.metrics.jsonl")
+        recs = read_metrics(metrics_path)
+        losses = [r["loss"] for r in recs if "loss" in r]
+        epochs = [r for r in recs if "test_acc" in r]
+        require(recs and all(r["device_resident"] is True for r in recs),
+                "the metrics do not say device_resident")
+        require(losses and all(np.isfinite(losses)), "a logged loss is not finite")
+        require(len(epochs) == 2 and all(0.0 <= r["test_acc"] <= 1.0 for r in epochs),
+                "the epochs' test_acc")
+        # the restart from epoch 1's checkpoint, for one epoch
+        t0 = time.perf_counter()
+        run_twin(dict(env, DORKNET_RESTART_CKPT=ckpt[1][0], DORKNET_START_EPOCH="2"))
+        torch.cuda.synchronize()
+        restart_s = time.perf_counter() - t0
+        recs = read_metrics(metrics_path)[len(recs):]
+        require(recs and np.isfinite(recs[0]["loss"]) and recs[0]["epoch"] == 2,
+                "the restarted run's first logged loss")
+        require(any("test_acc" in r for r in recs), "the restarted run did not validate")
+    finally:
+        os.chdir(cwd)
+    twin_img_s = epochs[1]["train_img_s"]
+    log("  restart from {} for one epoch in {:.1f} s; its first loss {:.6f}".format(
+        ckpt[1][0], restart_s, recs[0]["loss"]))
+    log("  the script's own loop, epoch 2 (no capture in it): {:.1f} img/s; epoch 1 (adoption, "
+        "warm-up and capture in it): {:.1f} img/s; phase 13b's captured "
+        "step_augmented_indexed in this call {:.1f} img/s: the script at {:.1%} of it "
+        "(its host work: a float(loss) and the preds fetched every step)".format(
+            twin_img_s, epochs[0]["train_img_s"], captured_img_s, twin_img_s / captured_img_s))
+    return launches, dict(seconds=seconds, restart_s=restart_s, captures=captures,
+                          test_acc=[r["test_acc"] for r in epochs],
+                          train_img_s=[r["train_img_s"] for r in epochs],
+                          captured_img_s=captured_img_s, losses=losses)
+
+
+def phase_14(tmp, train_path, captured_img_s):
+    """Phases 14a-14c; returns each one's launches of AUG_KERNELS, the GEMM
+    kernels' launches over the three (none) and the numbers."""
+    reset_launches((matmul, matmul_bn_stats))
+    net, ckpt_launches, ckpt = phase_checkpoint(tmp)
+    val_path = os.path.join(tmp, "val_packed")
+    write_val_set(val_path)
+    test_launches, test = phase_network_test(net, val_path)
+    del net
+    twin_launches, twin = phase_twin(tmp, train_path, val_path, captured_img_s)
+    gemm_launches = [matmul.launches, matmul_bn_stats.launches]
+    log("  phase 14: GEMM kernel launches matmul/matmul_bn_stats {}".format(gemm_launches))
+    return ((ckpt_launches, test_launches, twin_launches), gemm_launches,
+            {"checkpoint": ckpt, "network_test": test, "script": twin})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a "
@@ -2447,6 +2729,8 @@ def main():
         acc_launches = phase_accumulate()
         graph_launches, replay, captured = phase_captured(dd)
         del dd
+        captured_img_s = 2 * AUG_BATCH / captured["step_augmented_indexed"]["captured"]["ms"] * 1e3
+        p14_launches, p14_gemm, p14 = phase_14(tmp, os.path.join(tmp, "packed"), captured_img_s)
 
     bound_ms, bound_by = flagship_bound_ms()
     dw_bound, dw_by = flagship_bound_ms(lambda C: 9 * C * 4)
@@ -2476,10 +2760,17 @@ def main():
         """AUG_KERNELS[i]'s launches in each captured trainer's own run."""
         return {entry: counts[i] for entry, counts in graph_launches.items()}
 
+    def phase14(i):
+        """AUG_KERNELS[i]'s launches in each run of phase 14 (counts set to
+        0 just before each, read just after)."""
+        return dict(zip(("checkpoint", "network_test", "script"),
+                        (counts[i] for counts in p14_launches)))
+
     captured_steps = {k: captured[k] for k in ("step", "step_augmented_indexed",
                                                  "accumulate_step", "capture_seconds",
                                                  "peak_mb", "pool_mb", "remat", "held")}
     log(json.dumps({"captured_steps": captured_steps}))
+    log(json.dumps({"phase14": p14}))
     log(json.dumps({"kernels": [
         dict(name="depthwise3x3", route="cuda",
              source="dorknet_tpu_torch/csrc/depthwise3x3.cu",
@@ -2493,39 +2784,41 @@ def main():
              bf16_old_route_device_ms=fwd["device_scalar_bf16"],
              bf16_library_device_ms=fwd["device_cudnn_bf16"],
              captured_replay_launches=replayed("depthwise3x3_fwd_vec_kernel"),
-             captured_run_launches=captured_run(1), **folded),
+             captured_run_launches=captured_run(1), phase14_launches=phase14(1), **folded),
         dict(name="depthwise3x3_dx", source="dorknet_tpu_torch/csrc/depthwise3x3_bwd.cu",
              launches=launches[1], max_abs_err=bwd_err["dx"], ms=bwd["dx"],
              plain_ms=bwd["dx_plain"], bound_ms=bound_ms, bound_by=bound_by,
              library_ms=bwd["dx_cudnn"], launches_by_route=train_routes[1],
              captured_replay_launches=replayed("depthwise3x3_dx_vec_kernel"),
-             captured_run_launches=captured_run(2), **bwd_device("dx"), **entry),
+             captured_run_launches=captured_run(2), phase14_launches=phase14(2),
+             **bwd_device("dx"), **entry),
         dict(name="depthwise3x3_dw", source="dorknet_tpu_torch/csrc/depthwise3x3_bwd.cu",
              launches=launches[2], max_abs_err=bwd_err["dw"], ms=bwd["dw"],
              plain_ms=bwd["dw_plain"], bound_ms=dw_bound, bound_by=dw_by,
              library_ms=bwd["dw_cudnn"], launches_by_route=train_routes[2],
              captured_replay_launches=replayed("depthwise3x3_dw_vec_kernel"),
-             captured_run_launches=captured_run(3), **bwd_device("dw"), **entry),
+             captured_run_launches=captured_run(3), phase14_launches=phase14(3),
+             **bwd_device("dw"), **entry),
         dict(name="augment_planes_fused", route="cuda",
              source="dorknet_tpu_torch/csrc/augment_planes.cu",
              replaces="dorknet_tpu/ops/pallas/augment.py:205", launches=aug_launches[0],
              launches_by_route=aug_routes, library_ms=None,
              captured_replay_launches=replayed("augment_band_kernel"),
-             captured_run_launches=captured_run(0), **aug),
+             captured_run_launches=captured_run(0), phase14_launches=phase14(0), **aug),
         dict(name="batch_norm_stats", route="cuda", source="dorknet_tpu_torch/csrc/bn_stats.cu",
              replaces="dorknet_tpu/ops/pallas/bn_stats.py:34", launches=launches[3],
              max_abs_err=bn_err, captured_replay_launches=replayed("bn_stats_partial_kernel"),
-             captured_run_launches=captured_run(4), **bn),
+             captured_run_launches=captured_run(4), phase14_launches=phase14(4), **bn),
         dict(name="matmul", route="cuda", source="dorknet_tpu_torch/csrc/matmul.cu",
              tensor_core_source="dorknet_tpu_torch/csrc/matmul_sm90.cu",
              replaces="dorknet_tpu/ops/pallas/matmul.py:26", launches=ab_launches[0],
              launches_by_route=ab_routes[0], captured_replay_launches=replayed(*GEMM_KERNELS),
-             **mm),
+             phase14_launches=p14_gemm[0], **mm),
         dict(name="matmul_bn_stats", route="cuda", source="dorknet_tpu_torch/csrc/matmul.cu",
              tensor_core_source="dorknet_tpu_torch/csrc/matmul_sm90.cu",
              replaces="dorknet_tpu/ops/pallas/matmul.py:78", launches=ab_launches[1],
              launches_by_route=ab_routes[1], captured_replay_launches=replayed(*GEMM_KERNELS),
-             **mm_stats),
+             phase14_launches=p14_gemm[1], **mm_stats),
     ]}))
     log("card:", card_line())
     log("chip_smoke: {:.1f} s in all".format(time.perf_counter() - _START))

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from dorknet_tpu_torch.data_loading.image_data_loader import ImageDataLoader
+from dorknet_tpu_torch.data_loading.image_preprocessor import ImagePreprocessor
 from dorknet_tpu_torch.data_loading.packed_dataset import PACKED_META
 from dorknet_tpu_torch.network.inference import resolve_device
 
@@ -58,8 +59,10 @@ class DeviceResidentDataset:
                 "repack it (a stale pack from another image size trains with the "
                 "wrong crop geometry)".format(packed_path, (ph, pw), tuple(expect_precrop)))
         self.device = resolve_device(device, "DeviceResidentDataset")
-        self._sampler = ImageDataLoader(packed_path, batch_size, class_balance=class_balance,
-                                        data_shard=data_shard, start_thread=False)
+        self._sampler = ImageDataLoader(packed_path, batch_size,
+                                        ImagePreprocessor((ph, pw), precrop_size=(pw, ph)),
+                                        class_balance=class_balance, data_shard=data_shard,
+                                        start_thread=False)
         self.packed = self._sampler.packed
         self._row_of = self._sampler._packed_row
         self.batch_size = int(batch_size)

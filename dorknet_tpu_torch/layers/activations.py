@@ -4,6 +4,7 @@ import torch
 
 from dorknet_tpu_torch.layers.base import Layer
 from dorknet_tpu_torch.layers.registry import register_layer
+from dorknet_tpu_torch.utils import h5io
 
 
 @register_layer
@@ -13,6 +14,9 @@ class ReLu(Layer):
 
     def fapply(self, x, train=False):
         return torch.relu(x)
+
+    def save_to_h5(self, open_f, save_grads=True):
+        h5io.create_layer_info(open_f, self.layer_name, "ReLu")
 
     def load_from_h5(self, open_f):
         pass
@@ -27,6 +31,9 @@ class IdentityLayer(Layer):
 
     def fapply(self, x, train=False):
         return x
+
+    def save_to_h5(self, open_f, save_grads=True):
+        h5io.create_layer_info(open_f, self.layer_name, "IdentityLayer")
 
     def load_from_h5(self, open_f):
         pass

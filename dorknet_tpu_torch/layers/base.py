@@ -15,6 +15,13 @@ and buffers from such trees of numpy arrays, without transposing anything.
 ``reg_loss`` is the regularisation term the reference reports and
 ``reg_loss_full`` the one its applied gradient contains (they differ only in
 ``ResidualBlock``).
+
+``save_to_h5(open_f, save_grads=True)`` writes a layer in the reference's h5
+schema and ``load_from_h5(open_f)`` reads it back. The ``grads/...``
+datasets hold the gradients of the last ``network.backward()`` and zeros
+before one: the JAX layers start from zeros and only a ``backward()``
+changes them (its trainer never does), and the JAX loader reads
+``grads/weights`` by default, so a file without them would not load there.
 """
 
 import numpy as np
@@ -97,8 +104,25 @@ class Layer(nn.Module):
         running stats that were never set."""
         return True
 
+    def save_to_h5(self, open_f, save_grads=True):
+        raise NotImplementedError
+
     def load_from_h5(self, open_f):
         raise NotImplementedError
+
+    def _grads_to_save(self):
+        """Each parameter's gradient from the last ``network.backward()``,
+        or zeros of its shape before one (the JAX layers' initial grads)."""
+        return {name: self.grads[name] if name in self.grads
+                else np.zeros(tuple(p.shape), np.float32)
+                for name, p in self.named_parameters(recurse=False)}
+
+    def _save_weights_to_h5(self, open_f, save_grads):
+        """The weights/bias/grads block shared by the conv, depthwise,
+        pointwise and dense layers: the twin of ``_load_weights_from_h5``."""
+        h5io.save_param_datasets(open_f, self.layer_name, self.get_params(),
+                                 self._grads_to_save(), self.weight_regulariser,
+                                 self.with_bias, save_grads=save_grads)
 
     def _load_weights_from_h5(self, open_f):
         """The weights/bias/regulariser block shared by the conv, depthwise,

@@ -29,6 +29,7 @@ from torch import nn
 from dorknet_tpu_torch.layers.base import Layer
 from dorknet_tpu_torch.layers.registry import register_layer
 from dorknet_tpu_torch.ops.norm import batch_norm_inference, batch_norm_train
+from dorknet_tpu_torch.utils import h5io
 
 
 @register_layer
@@ -111,6 +112,24 @@ class BatchNormLayer(Layer):
         return batch_norm_inference(x, self.gamma.reshape(-1), self.beta.reshape(-1),
                                     self.running_mean.reshape(-1),
                                     self.running_std.reshape(-1))
+
+    def save_to_h5(self, open_f, save_grads=True):
+        if self.running_mean is None:
+            raise ValueError(
+                "BatchNormLayer '{}' has no running statistics yet; run at "
+                "least one training batch (or load a checkpoint) before "
+                "saving".format(self.layer_name))
+        h5io.create_layer_info(
+            open_f, self.layer_name, "BatchNormLayer",
+            input_dimension=self.input_dimension, run_momentum=self.run_momentum,
+            incoming_chans=self.incoming_chans, eps=self.eps)
+        for name in ("gamma", "beta", "running_mean", "running_std"):
+            h5io.save_array(open_f, self.layer_name + "/" + name, getattr(self, name))
+        if save_grads:
+            grads = self._grads_to_save()
+            for name in ("gamma", "beta"):
+                h5io.save_array(open_f, "{}/grads/{}".format(self.layer_name, name),
+                                grads[name])
 
     def load_from_h5(self, open_f):
         info = open_f[self.layer_name + "/layer_info"].attrs

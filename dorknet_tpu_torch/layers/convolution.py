@@ -8,6 +8,7 @@ from torch import nn
 from dorknet_tpu_torch.layers.base import Layer, init_weights
 from dorknet_tpu_torch.layers.registry import register_layer
 from dorknet_tpu_torch.ops.conv import conv2d
+from dorknet_tpu_torch.utils import h5io
 
 
 @register_layer
@@ -44,6 +45,14 @@ class ConvLayer(Layer):
     def fapply(self, x, train=False):
         b = self.bias if self.with_bias else None
         return conv2d(x, self.weights, b, stride=self.stride, padding=self.padding)
+
+    def save_to_h5(self, open_f, save_grads=True):
+        h5io.create_layer_info(
+            open_f, self.layer_name, "ConvLayer",
+            with_bias=self.with_bias, num_filters=self.num_filters,
+            filter_chans=self.filter_chans, f_rows=self.f_rows,
+            f_cols=self.f_cols, stride=self.stride, padding=self.padding)
+        self._save_weights_to_h5(open_f, save_grads)
 
     def load_from_h5(self, open_f):
         info = open_f[self.layer_name + "/layer_info"].attrs

@@ -8,6 +8,7 @@ from torch import nn
 from dorknet_tpu_torch.layers.base import Layer, init_weights
 from dorknet_tpu_torch.layers.registry import register_layer
 from dorknet_tpu_torch.ops.conv import dense
+from dorknet_tpu_torch.utils import h5io
 
 
 @register_layer
@@ -35,6 +36,13 @@ class DenseLayer(Layer):
     def fapply(self, x, train=False):
         b = self.bias if self.with_bias else None
         return dense(x, self.weights, b)
+
+    def save_to_h5(self, open_f, save_grads=True):
+        h5io.create_layer_info(
+            open_f, self.layer_name, "DenseLayer",
+            incoming_chans=self.incoming_chans, output_dim=self.output_dim,
+            with_bias=self.with_bias)
+        self._save_weights_to_h5(open_f, save_grads)
 
     def load_from_h5(self, open_f):
         info = open_f[self.layer_name + "/layer_info"].attrs

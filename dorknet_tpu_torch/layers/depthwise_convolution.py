@@ -10,6 +10,7 @@ from torch import nn
 from dorknet_tpu_torch.layers.base import Layer, init_weights
 from dorknet_tpu_torch.layers.registry import register_layer
 from dorknet_tpu_torch.ops.conv import depthwise_conv2d
+from dorknet_tpu_torch.utils import h5io
 
 
 @register_layer
@@ -46,6 +47,14 @@ class DepthwiseConvLayer(Layer):
         b = self.bias if self.with_bias else None
         return depthwise_conv2d(x, self.weights, b,
                                 stride=self.stride, padding=self.padding)
+
+    def save_to_h5(self, open_f, save_grads=True):
+        h5io.create_layer_info(
+            open_f, self.layer_name, "DepthwiseConvLayer",
+            with_bias=self.with_bias, num_filters=self.num_filters,
+            f_rows=self.f_rows, f_cols=self.f_cols,
+            stride=self.stride, padding=self.padding)
+        self._save_weights_to_h5(open_f, save_grads)
 
     def load_from_h5(self, open_f):
         info = open_f[self.layer_name + "/layer_info"].attrs

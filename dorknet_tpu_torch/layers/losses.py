@@ -6,6 +6,7 @@ mean(-log(p·y)), whose gradient is pinned to (p - y)/B (``ops/loss.py``)."""
 from dorknet_tpu_torch.layers.base import Layer
 from dorknet_tpu_torch.layers.registry import register_layer
 from dorknet_tpu_torch.ops.loss import softmax_cross_entropy, softmax_probs
+from dorknet_tpu_torch.utils import h5io
 
 
 @register_layer
@@ -17,6 +18,9 @@ class SoftmaxWithCrossEntropy(Layer):
         """(data_loss, probs): the loss carries the gradient; the probs are
         detached."""
         return softmax_cross_entropy(logits, y_soft), softmax_probs(logits.detach())
+
+    def save_to_h5(self, open_f, save_grads=True):
+        h5io.create_layer_info(open_f, self.layer_name, "SoftmaxWithCrossEntropy")
 
     def load_from_h5(self, open_f):
         pass

@@ -10,6 +10,7 @@ from torch import nn
 from dorknet_tpu_torch.layers.base import Layer, init_weights
 from dorknet_tpu_torch.layers.registry import register_layer
 from dorknet_tpu_torch.ops.conv import pointwise_conv2d
+from dorknet_tpu_torch.utils import h5io
 
 
 @register_layer
@@ -45,6 +46,13 @@ class PointwiseConvLayer(Layer):
     def fapply(self, x, train=False):
         b = self.bias if self.with_bias else None
         return pointwise_conv2d(x, self.weights, b, stride=self.stride)
+
+    def save_to_h5(self, open_f, save_grads=True):
+        h5io.create_layer_info(
+            open_f, self.layer_name, "PointwiseConvLayer",
+            with_bias=self.with_bias, num_filters=self.num_filters,
+            num_channels=self.num_channels, stride=self.stride)
+        self._save_weights_to_h5(open_f, save_grads)
 
     def load_from_h5(self, open_f):
         info = open_f[self.layer_name + "/layer_info"].attrs

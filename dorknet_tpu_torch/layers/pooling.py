@@ -3,6 +3,7 @@
 from dorknet_tpu_torch.layers.base import Layer
 from dorknet_tpu_torch.layers.registry import register_layer
 from dorknet_tpu_torch.ops.pool import global_avg_pool
+from dorknet_tpu_torch.utils import h5io
 
 
 @register_layer
@@ -14,6 +15,9 @@ class GlobalAveragePoolingLayer(Layer):
 
     def fapply(self, x, train=False):
         return global_avg_pool(x)
+
+    def save_to_h5(self, open_f, save_grads=True):
+        h5io.create_layer_info(open_f, self.layer_name, "GlobalAveragePoolingLayer")
 
     def load_from_h5(self, open_f):
         pass

@@ -13,6 +13,7 @@ from torch import nn
 
 from dorknet_tpu_torch.layers.base import Layer
 from dorknet_tpu_torch.layers.registry import get_layer_class, register_layer
+from dorknet_tpu_torch.utils import h5io
 
 
 @register_layer
@@ -106,6 +107,20 @@ class ResidualBlock(Layer):
         if self.skip_projection is not None:
             skip = self.skip_projection.fapply(x, train)
         return self.post_skip_activation.fapply(h + skip, train)
+
+    def save_to_h5(self, open_f, save_grads=True):
+        attrs = {
+            "layer_type_list": [l.__class__.__name__ for l in self.layer_list],
+            "layer_name_list": [l.layer_name for l in self.layer_list],
+            "post_skip_activation_type": self.post_skip_activation.__class__.__name__,
+            "post_skip_activation_name": self.post_skip_activation.layer_name,
+        }
+        if self.skip_projection is not None:
+            attrs["skip_projection_type"] = self.skip_projection.__class__.__name__
+            attrs["skip_projection_name"] = self.skip_projection.layer_name
+        h5io.create_layer_info(open_f, self.layer_name, "ResidualBlock", **attrs)
+        for l in self._children():
+            l.save_to_h5(open_f, save_grads=save_grads)
 
     def load_from_h5(self, open_f):
         info = open_f[self.layer_name + "/layer_info"].attrs

@@ -10,8 +10,10 @@ the data loss plus every regularisation term with respect to every
 parameter; ``backward()`` then hands each layer its gradients, and
 ``optimiser.update_weights()`` applies them. The reported loss uses the
 reference's accounting, which leaves out the skip projections' terms
-(``ResidualBlock.reg_loss``). Weights come from a reference h5+json
-checkpoint (``load_network_from_json_and_h5``), from the seeded constructors
+(``ResidualBlock.reg_loss``). ``test`` is the reference's accuracy loop.
+Weights come from a reference h5+json checkpoint
+(``load_network_from_json_and_h5``; ``save_weights_to_h5`` and
+``save_layer_structure_to_json`` write one), from the seeded constructors
 (bit-equal to the JAX package's under the same ``np.random.seed``), or from
 the JAX network's own trees (``load_numpy_params``). ``_version`` counts
 changes to the layer list and the loss layer, as the JAX network's does; a
@@ -20,6 +22,7 @@ trainer keys its captured steps on it.
 
 import json
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -163,6 +166,21 @@ class FeedForwardNetwork(nn.Module):
                 "training batch, load a checkpoint or set them first "
                 "(uninitialised: {})".format(what, bad))
 
+    def test(self, data_loader, batch_size, test_set_size):
+        """The reference's accuracy loop over ``data_loader``'s (X, y, ...)
+        batches: a test-mode forward and the argmax on the network's
+        device, the compare with the labels y on the host. Returns the
+        correct count divided by ``test_set_size``."""
+        self._require_bn_initialized("test()")
+        device = self.device()
+        correct = 0
+        with torch.inference_mode():
+            for X_batch, y_batch, *_ in data_loader:
+                X = torch.as_tensor(X_batch, dtype=torch.float32).to(device, non_blocking=True)
+                pred = self._test_fn(X).argmax(dim=1).cpu().numpy()
+                correct += int(np.sum(np.asarray(y_batch) == pred))
+        return float(correct) / test_set_size
+
     # ------------------------------------------------------------------ #
     # Parameter trees, in the JAX package's shape
     # ------------------------------------------------------------------ #
@@ -197,8 +215,30 @@ class FeedForwardNetwork(nn.Module):
                 l.set_state(states[i])
 
     # ------------------------------------------------------------------ #
-    # Checkpoints (the reference's h5+json schema, read side)
+    # Checkpoints (the reference's h5+json schema; h5py is imported only
+    # here, since the card's machine has none)
     # ------------------------------------------------------------------ #
+    def save_weights_to_h5(self, fname):
+        """Every layer, then the loss layer, in the reference's h5 schema."""
+        import h5py
+
+        with h5py.File(fname, "w") as f:
+            for layer in self.layers:
+                layer.save_to_h5(f)
+            if self.loss_layer is not None:
+                self.loss_layer.save_to_h5(f)
+
+    def save_layer_structure_to_json(self, fname):
+        """The layer order as the reference writes it: the name, then each
+        layer's repr by layer name."""
+        structure_dict = {"name": self.name}
+        for layer in self.layers:
+            structure_dict[layer.layer_name] = repr(layer)
+        if self.loss_layer is not None:
+            structure_dict[self.loss_layer.layer_name] = repr(self.loss_layer)
+        with open(fname, "w") as f:
+            json.dump(structure_dict, f, indent=4)
+
     def load_network_from_json_and_h5(self, json_fname, h5_fname):
         """The json gives the layer order; each h5 'type' attr gives the
         class."""

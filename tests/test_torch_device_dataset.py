@@ -23,7 +23,7 @@ from dorknet_tpu.optimisers import SGDMomentum as JaxSGDMomentum  # noqa: E402
 
 import dorknet_tpu_torch.layers as tlayers  # noqa: E402
 from dorknet_tpu_torch.data_loading import (DeviceResidentDataset, ImageDataLoader,  # noqa: E402
-                                            PackedDataset, default_precrop,
+                                            ImagePreprocessor, PackedDataset, default_precrop,
                                             device_prefetch, fits_in_hbm, is_packed_dir,
                                             stack_batches, write_packed_arrays)
 from dorknet_tpu_torch.network import FeedForwardNetwork, Trainer  # noqa: E402
@@ -158,10 +158,14 @@ def test_fits_in_hbm_defaults_to_half_the_card(numpy_pack, monkeypatch):
 
 
 def test_unported_loader_modes_raise(numpy_pack, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A5b"):
-        ImageDataLoader(numpy_pack, 4)
+    # the modes that resize with cv2 (no crop mode, the host augmenter) or
+    # decode a JPEG tree
+    with pytest.raises(NotImplementedError, match="A5"):
+        ImageDataLoader(numpy_pack, 4, ImagePreprocessor((24, 24)))
+    with pytest.raises(NotImplementedError, match="A5"):
+        ImagePreprocessor((24, 24), crop_mode="random", image_augmenter=object())
     with pytest.raises(NotImplementedError, match="not a packed directory"):
-        ImageDataLoader(str(tmp_path), 4, start_thread=False)
+        ImageDataLoader(str(tmp_path), 4, ImagePreprocessor((24, 24)), start_thread=False)
     assert default_precrop((225, 225)) == (281, 281)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
