@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, its checkpoints and
-its flagship training script, and its kernels' A/B once on one NVIDIA GPU
-and check them.
+its flagship training script, CAM, MobileNet-V2 and the MNIST script, and
+its kernels' A/B once on one NVIDIA GPU and check them.
 
 Usage, from the root of a checkout, on a machine with a CUDA card, nvcc and
 nvidia-smi:
@@ -164,7 +164,37 @@ Phases (each checks its results; any failure ends the run non-zero with no
     then a restart from epoch 1's checkpoint for one epoch; each epoch's
     ``.pt`` files, the metrics JSONL (``device_resident``, finite losses,
     ``test_acc`` in [0, 1]), every kernel of the path launched, and the
-    script's own img/s beside 13b's captured step's.
+    script's own img/s beside 13b's captured step's;
+15. CAM and Grad-CAM (``dorknet_tpu_torch/cam.py``) on the flagship of
+    phase 3 (225 px, 120 classes, seeded weights, calibrated statistics),
+    16 images, top 3: ``compute_cam_scores_batch`` at ``res8`` (a test-mode
+    forward for the scores, then each image's train-mode tap: 16 + 16 x 16
+    depthwise forward and 16 x 34 ``batch_norm_stats`` launches),
+    ``compute_gradcam_scores_batch`` at ``res8`` and at ``res4`` (8 x 3 dx
+    launches, no dw) and ``compute_cam_scores`` on one image; each held to a
+    CPU twin on its first images (scores within 1e-5, maps within 1e-3 where
+    the CPU's map is not all 0), every running stat bit-equal after the
+    phase, events, the profiler's busy ms and img/s of each call; then the
+    synthetic CAM demo twin's ``main`` on the card (4 PNGs);
+16. MobileNet-V2 at full width (224 px, 1,000 classes, batch 64): 16a
+    served unfolded and BN-folded (17 depthwise launches a dispatch, no
+    ``batch_norm_stats``; probs within 1e-4 of the CPU forward on 2 images
+    and of each other; events, device ms and a profile of each forward);
+    16b one eager ``Trainer.step`` of a fresh network (17 forward, 17 dx,
+    17 dw, all on the vector route, and 52 ``batch_norm_stats`` launches)
+    and a CPU twin at batch 4 (the loss within 1e-4; the update within 5e-2
+    relative L2, beside the CPU's own spread under a 1e-6 nudge of its
+    input); 16c captured steps against eager ones (three eager steps'
+    launches, then replays; one replay's profile names the hand kernels
+    17/17/17/52 times; times, busy ms, idle share and peak memory); 16d the
+    depthwise forward, dx and dw at each of its 10 shapes held to their
+    plain versions and timed (device ms) against cuDNN with TF32 off and
+    the bound;
+17. the MNIST twin (``dorknet_tpu_torch/examples/MNIST_basic_convnet.py``)
+    through ``runpy`` on synthetic npy files in ``scripts/MNISTprepper.py``'s
+    layout, one epoch of 10 steps at batch 200 and a test: its metrics line
+    and its launches (``batch_norm_stats`` only, 5 a step in the trainer's
+    three eager steps).
 
 The line before the last is a JSON object of the kernels of the paths (with
 each kernel's launches by route, and both routes' times, device times
@@ -172,8 +202,9 @@ included; the depthwise forward's entry also carries its launches in the
 folded served run and in the reloaded programs' runs; every entry its
 launches in one replay of each captured step, by name in the profile, and
 the training kernels their wrapper launches over phase 13b's driven
-steps, and every entry its launches in each run of phase 14); JSON objects
-of phase 13b's and phase 14's numbers come before it; the last line is
+steps, and every entry its launches in each run of phases 14-17 and in one
+replay of phase 16's captured step); JSON objects of phase 13b's and
+phases 14-17's numbers come before it; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -197,12 +228,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dorknet_tpu_torch import config
+from dorknet_tpu_torch import cam, config
 from dorknet_tpu_torch.data_loading import (DeviceResidentDataset, ImageDataLoader,
                                             ImagePreprocessor, draw_batch_params,
                                             train_pipeline, write_packed_arrays)
 from dorknet_tpu_torch.layers.base import to_nhwc
-from dorknet_tpu_torch.models import ResNet18
+from dorknet_tpu_torch.examples import synthetic_cam_demo
+from dorknet_tpu_torch.models import MobileNetV2, ResNet18
 from dorknet_tpu_torch.layers import BatchNormLayer
 from dorknet_tpu_torch.network import (BatchingServer, InferenceRunner, Trainer,
                                        load_serving_artifact)
@@ -2586,15 +2618,15 @@ def phase_network_test(net, val_path):
                           val_img_s=VAL_IMAGES / seconds["cuda"])
 
 
-def run_twin(env):
-    """The flagship script's __main__ with ``env`` set, then unset; returns
-    its module globals. Its standard output (the network's repr) is
-    dropped; its log goes to standard error."""
+def run_twin(env, module=TWIN):
+    """A script's __main__ (the flagship script's by default) with ``env``
+    set, then unset; returns its module globals. Its standard output (the
+    network's repr) is dropped; its log goes to standard error."""
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
         with contextlib.redirect_stdout(io.StringIO()):
-            return runpy.run_module(TWIN, run_name="__main__")
+            return runpy.run_module(module, run_name="__main__")
     finally:
         for k, v in old.items():
             if v is None:
@@ -2694,6 +2726,432 @@ def phase_14(tmp, train_path, captured_img_s):
             {"checkpoint": ckpt, "network_test": test, "script": twin})
 
 
+# --------------------------------------------------------------------------- #
+# Phases 15-17: CAM and Grad-CAM, MobileNet-V2, the MNIST script
+# --------------------------------------------------------------------------- #
+ALL_KERNELS = AUG_KERNELS + (matmul, matmul_bn_stats)
+CAM_IMAGES = 16   # phase 15's batch
+CAM_TWIN = 4      # the first CAM_TWIN of them also go through the CPU twin
+CAM_TOP = 3
+CAM_SCORE_TOL = 1e-5  # scores (softmax probs), absolute
+CAM_MAP_TOL = 1e-3    # maps in [0, 1], absolute, where the CPU map is not all 0
+# the flagship's depthwise layers up to a tap (res4: 2 a block), and its
+# batch norms up to res8 (all 34 train-mode ones)
+RES4_DW = 8
+MNV2_IMAGE = (3, 224, 224)
+MNV2_CLASSES = 1000
+# MobileNet-V2's depthwise layers: (H = W of the input, C, stride, how many)
+MNV2_DW = [(112, 32, 1, 1), (112, 96, 2, 1), (56, 144, 1, 1), (56, 144, 2, 1),
+           (28, 192, 1, 2), (28, 192, 2, 1), (14, 384, 1, 4), (14, 576, 1, 2),
+           (14, 576, 2, 1), (7, 960, 1, 3)]
+MNV2_DW_LAYERS = sum(n for *_, n in MNV2_DW)  # 17
+MNV2_BN_LAYERS = 52
+MNV2_WANT = [MNV2_DW_LAYERS] * 3 + [MNV2_BN_LAYERS]
+MNV2_LR = 0.05 * (BATCH / 200.0)
+MNV2_NUDGE = 1e-6  # the CPU twin's yardstick: its input scaled by 1 + this
+# the twin's update, relative L2 over all parameters: a 1e-6 nudge of the
+# input moves the CPU's own update by about 0.8% (relative L2 at 224 px,
+# batch 4), the early layers' 0.01-scale weights taking most of it
+MNV2_UPDATE_TOL = 5e-2
+MNIST_TWIN = "dorknet_tpu_torch.examples.MNIST_basic_convnet"
+MNIST_BN_LAYERS = 5
+
+
+def kernel_counts():
+    """{kernel name: launches} of every kernel of the port."""
+    return {k.__name__: k.launches for k in ALL_KERNELS}
+
+
+def counted(fn):
+    """fn() with every launch count set to 0 just before and read just
+    after (the card synchronised): (its result, {name: launches})."""
+    torch.cuda.synchronize()
+    reset_launches(ALL_KERNELS)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernel_counts()
+
+
+def bn_buffers(net):
+    return [b.detach().clone() for m in net.modules() if isinstance(m, BatchNormLayer)
+            for b in (m.running_mean, m.running_std)]
+
+
+def cam_calls():
+    """The CAM entry points phase 15 drives: name -> fn(net, X) -> (scores,
+    maps) with a leading image axis."""
+    def single(net, X):
+        s, c = cam.compute_cam_scores(net, X[:1], top_k=CAM_TOP, out_size=IMAGE[1])
+        return s[None], c[None]
+
+    return {
+        "cam_batch": lambda net, X: cam.compute_cam_scores_batch(
+            net, X, top_k=CAM_TOP, terminal_layer_name="res8", out_size=IMAGE[1]),
+        "gradcam_res8": lambda net, X: cam.compute_gradcam_scores_batch(
+            net, X, top_k=CAM_TOP, terminal_layer_name="res8", out_size=IMAGE[1]),
+        "gradcam_res4": lambda net, X: cam.compute_gradcam_scores_batch(
+            net, X, top_k=CAM_TOP, terminal_layer_name="res4", out_size=IMAGE[1]),
+        "cam_single": single,
+    }
+
+
+def cam_want(name, n):
+    """Launches forward/dx/dw/bn_stats of one call over n images: a test-mode
+    forward (16 depthwise) for the scores, then CAM's train-mode tap of each
+    image to res8 (16 depthwise, 34 batch norms), or Grad-CAM's backward
+    from the logits to the tap, k times (8 depthwise dx from res4, none from
+    res8), and no dw."""
+    return {"cam_batch": [DW_LAYERS * (1 + n), 0, 0, BN_LAYERS * n],
+            "gradcam_res8": [DW_LAYERS, 0, 0, 0],
+            "gradcam_res4": [DW_LAYERS, RES4_DW * CAM_TOP, 0, 0],
+            "cam_single": [2 * DW_LAYERS, 0, 0, BN_LAYERS]}[name]
+
+
+def phase_cam(net_cpu, net_gpu, tmp):
+    """Phase 15. Returns {call: {kernel: launches}} and the numbers."""
+    log("== phase 15: CAM and Grad-CAM on the flagship ({} px, {} classes, seeded weights, "
+        "calibrated statistics), {} images, top {}".format(IMAGE[1], NUM_CLASSES, CAM_IMAGES,
+                                                          CAM_TOP))
+    log("card:", card_line())
+    X = np.random.RandomState(15).randn(CAM_IMAGES, *IMAGE).astype(np.float32)
+    xg = torch.from_numpy(X).to(DEVICE)
+    stats = bn_buffers(net_gpu)
+    launches, numbers = {}, {}
+    for name, fn in cam_calls().items():
+        n = 1 if name == "cam_single" else CAM_IMAGES
+        (scores, maps), counts = counted(lambda: fn(net_gpu, xg))
+        launches[name] = counts
+        got = [counts[k.__name__] for k in TRAIN_KERNELS]
+        want = cam_want(name, n)
+        log("  {}: launches forward/dx/dw/bn_stats {} (want {})".format(name, got, want))
+        require(got == want, "{}: a layer missed its kernel, or a weight gradient ran".format(
+            name))
+        require_vector_route(name, kernels=(depthwise3x3,) + ((depthwise3x3_dx,)
+                                                             if got[1] else ()))
+        require(tuple(maps.shape) == (n, CAM_TOP, IMAGE[1], IMAGE[2]),
+                "{}: maps shape {}".format(name, tuple(maps.shape)))
+        require(bool(torch.isfinite(maps).all()) and float(maps.min()) >= 0.0
+                and float(maps.max()) <= 1.0 + 1e-6, "{}: maps outside [0, 1]".format(name))
+        # the CPU twin on the first images (each image's result depends on it alone)
+        k = min(n, CAM_TWIN)
+        s_cpu, m_cpu = fn(net_cpu, X[:k])
+        s_err = float((scores[:k].cpu() - s_cpu).abs().max())
+        live = m_cpu.amax(dim=(2, 3)) > 0  # maps the ReLU left something of
+        require(bool(live.any()), "{}: every CPU map is 0".format(name))
+        m_err = float((maps[:k].cpu() - m_cpu).abs().amax(dim=(2, 3))[live].max())
+        log("    vs the CPU twin on {} images: max|dscore| {:.3e} (limit {:.0e}), max|dmap| "
+            "{:.3e} over {} of {} maps (limit {:.0e}; the rest are 0 on the CPU: {})".format(
+                k, s_err, CAM_SCORE_TOL, m_err, int(live.sum()), live.numel(), CAM_MAP_TOL,
+                bool((maps[:k].cpu()[~live] == 0).all())))
+        require(s_err <= CAM_SCORE_TOL, "{}: scores differ from the CPU twin's".format(name))
+        require(m_err <= CAM_MAP_TOL, "{}: maps differ from the CPU twin's".format(name))
+        # CAM over 16 images queues some 3,000 kernels, more than the card
+        # takes pending behind device_ms's spin: its device ms is the
+        # profiler's busy time
+        events = cuda_ms(lambda: fn(net_gpu, xg), warmup=2, iters=10)
+        span, by_class, _, n_kernels = device_profile(lambda: fn(net_gpu, xg), steps=2)
+        busy = sum(by_class.values())
+        numbers[name] = dict(images=n, events_ms=events, busy_ms=busy, kernels=n_kernels,
+                             idle_share=max(0.0, 1.0 - busy / span) if busy else None,
+                             img_s=n / events * 1e3, max_abs_score_err=s_err,
+                             max_abs_map_err=m_err)
+        log("    events {:.3f} ms = {:.1f} img/s; profiler: {} kernels, busy {:.3f} ms of "
+            "{:.3f} ms (host clock with the profiler on); by class {}".format(
+                events, n / events * 1e3, n_kernels, busy, span,
+                {c: round(v, 3) for c, v in sorted(by_class.items(), key=lambda kv: -kv[1])}))
+    moved = [i for i, (a, b) in enumerate(zip(stats, bn_buffers(net_gpu))) if not torch.equal(a, b)]
+    log("  running stats: {} tensors, {} moved".format(len(stats), len(moved)))
+    require(not moved, "CAM moved a running statistic")
+    require(all(p.requires_grad and p.grad is None for p in net_gpu.parameters()),
+            "Grad-CAM left a weight gradient or a cleared requires_grad")
+    out_dir = os.path.join(tmp, "cam_demo")
+    t0 = time.perf_counter()
+    (correct, demo_launches) = counted(lambda: synthetic_cam_demo.main(out_dir))
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    log("  synthetic CAM demo on the card: {:.1f} s, {} PNGs {}, launches {}".format(
+        time.perf_counter() - t0, len(pngs), pngs, demo_launches))
+    require(len(pngs) == 4 and 0 <= correct <= 4, "the CAM demo's PNGs")
+    numbers["demo"] = dict(correct=correct, pngs=pngs, launches=demo_launches)
+    return launches, numbers
+
+
+def mnv2_pair():
+    """MobileNet-V2 at full width on the CPU with the serving weights and
+    calibrated statistics of utils/seeded.py, and its copy on the card."""
+    net_cpu = fresh_mnv2()
+    seed_serving_weights(net_cpu, seed=0, calib_hw=MNV2_IMAGE[1:])
+    net_gpu = fresh_mnv2()
+    net_gpu.load_numpy_params(net_cpu.gather_params(), net_cpu.gather_states())
+    return net_cpu, net_gpu.to(DEVICE)
+
+
+def fresh_mnv2():
+    np.random.seed(0)
+    return MobileNetV2("mnv2", num_classes=MNV2_CLASSES)
+
+
+def mnv2_batches(seed, steps, B):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(steps, B, *MNV2_IMAGE).astype(np.float32)
+    y = np.eye(MNV2_CLASSES, dtype=np.float32)[rng.randint(0, MNV2_CLASSES, (steps, B))]
+    return X, y
+
+
+def phase_mnv2_serving():
+    """Phase 16a. Returns the launches of each served run and the numbers."""
+    log("== phase 16a: MobileNet-V2 served ({} px, {} classes, batch {}; seeded weights, "
+        "calibrated statistics), unfolded and BN-folded".format(MNV2_IMAGE[1], MNV2_CLASSES,
+                                                                BATCH))
+    log("card:", card_line())
+    net_cpu, net_gpu = mnv2_pair()
+    X = np.random.RandomState(16).randn(BATCH, *MNV2_IMAGE).astype(np.float32)
+    runners = {"unfolded": InferenceRunner(net_gpu, batch_size=BATCH, device=DEVICE),
+               "folded": InferenceRunner(net_gpu, batch_size=BATCH, device=DEVICE,
+                                         fold_bn=True)}
+    launches, probs = {}, {}
+    for name, runner in runners.items():
+        probs[name], launches[name] = counted(lambda: runner.predict_probs(X))
+        got = [launches[name][k.__name__] for k in TRAIN_KERNELS]
+        log("  {}: launches forward/dx/dw/bn_stats {} (want {})".format(
+            name, got, [MNV2_DW_LAYERS, 0, 0, 0]))
+        require(got == [MNV2_DW_LAYERS, 0, 0, 0], "{}: a layer missed its kernel".format(name))
+        require_vector_route("MobileNet-V2 " + name)
+        require(probs[name].shape == (BATCH, MNV2_CLASSES) and np.isfinite(probs[name]).all(),
+                "{}: probs".format(name))
+    _, want = net_cpu.forward(X[:2], test_mode=True)
+    err = {name: float(np.abs(p[:2] - want.numpy()).max()) for name, p in probs.items()}
+    err["folded_vs_unfolded"] = float(np.abs(probs["folded"] - probs["unfolded"]).max())
+    log("  max|dprob|: vs the CPU forward on 2 images {} (limit 1e-4), folded vs unfolded on "
+        "{} images {:.3e} (limit 1e-4); max prob of the first 4 {}".format(
+            {k: "{:.3e}".format(v) for k, v in err.items() if k != "folded_vs_unfolded"},
+            BATCH, err["folded_vs_unfolded"], [round(float(p), 4)
+                                               for p in probs["unfolded"][:4].max(1)]))
+    require(max(err.values()) <= 1e-4, "MobileNet-V2 serving disagrees")
+    x = torch.from_numpy(X).to(DEVICE)
+    with torch.inference_mode():
+        times = forward_times({k: r.network._test_fn for k, r in runners.items()}, x)
+    for k, t in times.items():
+        log("  {} forward, batch {}: events {:.3f} ms = {:.0f} img/s, device {:.3f} ms; {} "
+            "kernels, busy {:.3f} ms, idle {:.1%}, depthwise forward {:.3f} ms, elementwise "
+            "{:.3f} ms, GEMM {:.3f} ms".format(
+                k, BATCH, t["events"], BATCH / t["events"] * 1e3, t["device"], t["kernels"],
+                t["busy"], t["idle"], t["dw_forward"], t["elementwise"], t["gemm"]))
+    return launches, dict(times=times, max_abs_prob_err=err)
+
+
+def phase_mnv2_train():
+    """Phase 16b. Returns the eager step's launches and its numbers."""
+    log("== phase 16b: MobileNet-V2 trained by Trainer.step (eager, batch {}, fresh network "
+        "from np.random.seed(0), SGDMomentum)".format(BATCH))
+    net = fresh_mnv2()
+    trainer = Trainer(net, SGDMomentum(net, MNV2_LR, 0.9), device=DEVICE, cuda_graph=False)
+    X, y = mnv2_batches(16, 1, BATCH)
+    (loss, preds), counts = counted(lambda: trainer.step(X[0], y[0]))
+    got = [counts[k.__name__] for k in TRAIN_KERNELS]
+    log("  step: loss {:.6f}, launches forward/dx/dw/bn_stats {} (want {})".format(
+        float(loss), got, MNV2_WANT))
+    require(got == MNV2_WANT, "a MobileNet-V2 layer missed its kernel")
+    require_vector_route("MobileNet-V2 step", kernels=KERNELS)
+    require(np.isfinite(float(loss)), "non-finite loss")
+    del trainer, net
+    # the CPU twin: one step at batch 4 from the same fresh weights. The
+    # flagship's per-parameter limit (1e-4 relative + 1e-5 absolute) cannot
+    # hold here: the fresh 0.01-scale weights under 52 batch norms amplify
+    # rounding, so the CPU alone, its input scaled by 1 + MNV2_NUDGE, moves
+    # the stem's and the first depthwise layer's weights tens of times that
+    # limit (logged beside the card's). The gate is the loss and the update
+    # as a whole (its relative L2 difference over all parameters); each
+    # kernel is held to its plain version at every MobileNet-V2 shape in 16d.
+    Xt, yt = mnv2_batches(17, 1, 4)
+    start = fresh_mnv2()
+    names = [n for n, _ in start.named_parameters()]
+    start = [p.detach() for p in start.parameters()]
+    runs = []
+    for device, scale in ((DEVICE, 1.0), ("cpu", 1.0), ("cpu", 1.0 + MNV2_NUDGE)):
+        net = fresh_mnv2()
+        t = Trainer(net, SGDMomentum(net, 0.05 * 4 / 200.0, 0.9), device=device,
+                    cuda_graph=False)
+        loss_t = float(t.step(Xt[0] * np.float32(scale), yt[0])[0])
+        runs.append((loss_t, [p.detach().cpu() for p in net.parameters()]))
+    (got, card), (want, cpu), (_, nudged) = runs
+
+    def spread(a, b):
+        """The update's relative L2 difference over all parameters, and
+        the tensors furthest outside the flagship's per-element limit."""
+        diff = sum(float(((p - q) ** 2).sum()) for p, q in zip(a, b))
+        norm = sum(float(((q - s) ** 2).sum()) for q, s in zip(b, start))
+        shares = sorted(((float(((p - q).abs() / (1e-5 + 1e-4 * q.abs())).max()), n)
+                         for p, q, n in zip(a, b, names)), reverse=True)
+        return (diff / norm) ** 0.5, shares[:3]
+
+    rel = abs(got - want) / abs(want)
+    (card_l2, card_top), (cpu_l2, cpu_top) = spread(card, cpu), spread(nudged, cpu)
+    log("  CPU twin, one step at batch 4: loss card {:.7f}, CPU {:.7f}, relative difference "
+        "{:.3e} (limit 1e-4); the update's relative L2 difference card vs CPU {:.3e} (limit "
+        "{:.0e}), the CPU's own with its input scaled by 1 + {:.0e} {:.3e}; shares of the "
+        "flagship's per-element limit, largest: card {}, nudged CPU {}".format(
+            got, want, rel, card_l2, MNV2_UPDATE_TOL, MNV2_NUDGE, cpu_l2,
+            [(round(s, 2), n) for s, n in card_top], [(round(s, 2), n) for s, n in cpu_top]))
+    require(rel <= 1e-4, "MobileNet-V2: card and CPU losses disagree")
+    require(card_l2 <= MNV2_UPDATE_TOL, "MobileNet-V2: card and CPU updates disagree")
+    return counts, dict(loss=float(loss), twin_loss_rel=rel, twin_update_rel_l2=card_l2,
+                        cpu_nudged_update_rel_l2=cpu_l2, twin_param_of_limit=card_top[0][0],
+                        cpu_nudged_param_of_limit=cpu_top[0][0])
+
+
+MNV2_REPLAY = (("depthwise3x3_fwd_vec_kernel", MNV2_DW_LAYERS),
+               ("depthwise3x3_dx_vec_kernel", MNV2_DW_LAYERS),
+               ("depthwise3x3_dw_vec_kernel", MNV2_DW_LAYERS),
+               ("bn_stats_partial_kernel", MNV2_BN_LAYERS)) + tuple((n, 0) for n in GEMM_KERNELS)
+
+
+def phase_mnv2_captured():
+    """Phase 16c. Returns the captured trainer's own launches, one replay's
+    kernels by name and the numbers."""
+    log("== phase 16c: MobileNet-V2 captured steps against eager ones (batch {})".format(BATCH))
+    pair = graph_pair(make=fresh_mnv2, lr=MNV2_LR)
+    X, y = mnv2_batches(18, 1, BATCH)
+    x, yy = torch.from_numpy(X[0]).to(DEVICE), torch.from_numpy(y[0]).to(DEVICE)
+    captured = pair[0]
+    # adoption, warm-up and capture: three eager steps' launches, then replays
+    _, run = counted(lambda: [captured.step(x, yy) for _ in range(4)])
+    log("  the captured trainer's first 4 calls: launches {}".format(run))
+    require([run[k.__name__] for k in TRAIN_KERNELS] == [3 * n for n in MNV2_WANT],
+            "the captured trainer's eager steps")
+    replay = require_replay_kernels("MobileNet-V2 Trainer.step", lambda: captured.step(x, yy),
+                                    MNV2_REPLAY)
+    times = step_times(pair, lambda t: t.step(x, yy), "MobileNet-V2 Trainer.step", BATCH)
+    peak = {}
+    for which, t in zip(("captured", "eager"), pair):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, _ = t.step(x, yy)
+        torch.cuda.synchronize()
+        peak[which] = (torch.cuda.max_memory_allocated() - base) / 1e6
+        require(np.isfinite(float(loss)), "non-finite loss")
+    log("  a step's peak memory over the allocated before it: captured {:.1f} MB, eager "
+        "{:.1f} MB; graph pool {:.1f} MB; capture {:.3f} s".format(
+            peak["captured"], peak["eager"], pool_bytes(captured._pool) / 1e6,
+            captured.capture_seconds))
+    return run, replay, dict(times=times, peak_mb=peak, pool_mb=pool_bytes(captured._pool) / 1e6,
+                             capture_seconds=captured.capture_seconds)
+
+
+def phase_mnv2_shapes():
+    """Phase 16d: the depthwise forward, dx and dw at each of MobileNet-V2's
+    shapes at batch 64, fp32, device time against cuDNN (TF32 off) and the
+    bound. Returns a list of rows."""
+    log("== phase 16d: depthwise kernels at MobileNet-V2's shapes, batch {}, fp32, device ms "
+        "(calls behind a spin kernel) against cuDNN (F.conv2d(groups=C) and its backward, "
+        "TF32 off) and the bound".format(BATCH))
+    log("card:", card_line())
+    require(not torch.backends.cudnn.allow_tf32, "cuDNN's yardstick would run in TF32")
+    rows, totals = [], {}
+    for i, (H, C, stride, n) in enumerate(MNV2_DW):
+        x, w = dw_inputs(BATCH, H, C, torch.float32, seed=1600 + i)
+        g = grad_input(BATCH, H, C, stride, torch.float32, seed=1700 + i)
+        xc, wc = x.permute(0, 3, 1, 2), w.unsqueeze(1)
+        calls = {
+            "fwd": lambda: depthwise3x3(x, w, stride),
+            "fwd_cudnn": lambda: F.conv2d(xc, wc, stride=stride, padding=1, groups=C),
+            "dx": lambda: depthwise3x3_dx(g, w, stride, H, H),
+            "dx_cudnn": lambda: cudnn_grad(g, x, w, stride, [True, False, False]),
+            "dw": lambda: depthwise3x3_dw(x, g, stride),
+            "dw_cudnn": lambda: cudnn_grad(g, x, w, stride, [False, True, False]),
+        }
+        with torch.inference_mode():
+            ms = {k: device_ms([fn]) for k, fn in calls.items()}
+            # each kernel against its plain version at this shape (phase 2's
+            # and phase 6's limits)
+            errs = {}
+            for k, got, ref, limit in (
+                    ("fwd", calls["fwd"](), depthwise3x3_plain(x, w, stride), None),
+                    ("dx", calls["dx"](), depthwise3x3_dx_plain(g, w, stride, H, H), None),
+                    ("dw", calls["dw"](), depthwise3x3_dw_plain(x, g, stride),
+                     2e-5 * depthwise3x3_dw_plain(x.abs(), g.abs(), stride) + 1e-6)):
+                if limit is None:
+                    limit = 1e-5 * ref.abs().max() + 1e-6
+                errs[k] = ((got - ref).abs() / limit).max().item()
+        log("    vs the plain versions, the largest share of the limit: {}".format(
+            {k: round(v, 4) for k, v in errs.items()}))
+        require(all(v <= 1.0 for v in errs.values()),
+                "a depthwise kernel disagrees with its plain version at MobileNet-V2's "
+                "{}x{}x{} s{}".format(H, H, C, stride))
+        bound, by = dw_bound_ms(BATCH, H, C, stride)
+        dw_bound, dw_by = dw_bound_ms(BATCH, H, C, stride, 9 * C * 4)
+        row = dict(N=BATCH, H=H, C=C, stride=stride, layers=n, bound_ms=bound, bound_by=by,
+                   dw_bound_ms=dw_bound, share_of_limit=errs, **ms)
+        row["loses_to_cudnn"] = [k for k in ("fwd", "dx", "dw") if ms[k] > ms[k + "_cudnn"]]
+        rows.append(row)
+        for k in calls:
+            totals[k] = totals.get(k, 0.0) + n * ms[k]
+        log("  {}x{}x{} s{} (x{}): fwd {:.4f} / cuDNN {:.4f}, dx {:.4f} / {:.4f}, dw {:.4f} / "
+            "{:.4f} ms; bound {:.4f} ({}), dw {:.4f}; loses to cuDNN: {}".format(
+                H, H, C, stride, n, ms["fwd"], ms["fwd_cudnn"], ms["dx"], ms["dx_cudnn"],
+                ms["dw"], ms["dw_cudnn"], bound, by, dw_bound, row["loses_to_cudnn"] or "none"))
+    bound = sum(n * dw_bound_ms(BATCH, H, C, s)[0] for H, C, s, n in MNV2_DW)
+    dw_bound = sum(n * dw_bound_ms(BATCH, H, C, s, 9 * C * 4)[0] for H, C, s, n in MNV2_DW)
+    log("  over the 17 layers: {}; bound {:.4f} ms (dw {:.4f}): forward {:.1%}, dx {:.1%}, dw "
+        "{:.1%} of it".format({k: round(v, 4) for k, v in totals.items()}, bound, dw_bound,
+                               bound / totals["fwd"], bound / totals["dx"],
+                               dw_bound / totals["dw"]))
+    return rows, dict(totals, bound_ms=bound, dw_bound_ms=dw_bound)
+
+
+def phase_mnv2():
+    """Phase 16. Returns {run: {kernel: launches}}, the replay's kernels and
+    the numbers."""
+    serve_launches, serving = phase_mnv2_serving()
+    step_launches, train = phase_mnv2_train()
+    run, replay, captured = phase_mnv2_captured()
+    rows, totals = phase_mnv2_shapes()
+    launches = dict(serving_unfolded=serve_launches["unfolded"],
+                    serving_folded=serve_launches["folded"], eager_step=step_launches,
+                    captured_run=run)
+    return launches, replay, dict(serving=serving, train=train, captured=captured,
+                                  shapes=rows, shape_totals=totals)
+
+
+def write_mnist(path, n_train=2000, n_test=1000):
+    """Synthetic digits in scripts/MNISTprepper.py's layout (images (N, 784)
+    uint8, labels (N,) uint8), with a class signal in the intensity."""
+    rng = np.random.RandomState(17)
+    os.makedirs(path)
+    for split, n in (("Train", n_train), ("Test", n_test)):
+        y = rng.randint(0, 10, n).astype(np.uint8)
+        x = rng.randint(0, 64, (n, 784)) + 19 * y[:, None]
+        np.save(os.path.join(path, "MNIST{}Images.npy".format(split)), x.astype(np.uint8))
+        np.save(os.path.join(path, "MNIST{}Labels.npy".format(split)), y)
+
+
+def phase_mnist(tmp):
+    """Phase 17: the MNIST twin's __main__ on the card, one short epoch.
+    Returns its launches and its metrics line."""
+    log("== phase 17: the MNIST script (MNISTNet, batch 200, one epoch of 10 steps) on "
+        "synthetic npy files")
+    path = os.path.join(tmp, "MNIST_data")
+    write_mnist(path)
+    env = {"DORKNET_MNIST_DIR": path, "DORKNET_EPOCHS": "1", "DORKNET_NUM_TRAIN": "2000",
+           "DORKNET_NUM_VAL": "0", "DORKNET_NUM_TEST": "1000",
+           "DORKNET_METRICS": os.path.join(tmp, "mnist_metrics.jsonl")}
+    t0 = time.perf_counter()
+    _, launches = counted(lambda: run_twin(env, MNIST_TWIN))
+    seconds = time.perf_counter() - t0
+    record = read_metrics(env["DORKNET_METRICS"])[-1]
+    log("  {:.1f} s".format(seconds))
+    log("  metrics: {}; launches {} (MNISTNet runs no depthwise layer: batch_norm_stats only, "
+        "{} a step in the trainer's three eager steps, none in its replays or the test)".format(
+            {k: record[k] for k in ("epoch", "loss", "test_acc", "train_img_s")}, launches,
+            MNIST_BN_LAYERS))
+    require(np.isfinite(record["loss"]) and 0.0 <= record["test_acc"] <= 1.0,
+            "the MNIST script's metrics")
+    require(launches["batch_norm_stats"] == 3 * MNIST_BN_LAYERS
+            and launches["depthwise3x3"] == 0, "the MNIST script's launches")
+    return launches, dict(seconds=seconds, **{k: record[k] for k in ("loss", "test_acc",
+                                                                       "train_img_s")})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a "
@@ -2712,7 +3170,7 @@ def main():
     phase_serving(runner, X)
     folded = phase_folded(net_cpu, runner, X)
     fwd = phase_times(runner, X)
-    del runner, net_gpu, net_cpu
+    del runner  # the two networks serve phase 15
     bwd_err = phase_bwd_vs_plain()
     bn_err = phase_bn_stats_vs_plain()
     bn = phase_bn_stats_times()
@@ -2731,6 +3189,10 @@ def main():
         del dd
         captured_img_s = 2 * AUG_BATCH / captured["step_augmented_indexed"]["captured"]["ms"] * 1e3
         p14_launches, p14_gemm, p14 = phase_14(tmp, os.path.join(tmp, "packed"), captured_img_s)
+        p15_launches, p15 = phase_cam(net_cpu, net_gpu, tmp)
+        del net_cpu, net_gpu
+        p16_launches, p16_replay, p16 = phase_mnv2()
+        p17_launches, p17 = phase_mnist(tmp)
 
     bound_ms, bound_by = flagship_bound_ms()
     dw_bound, dw_by = flagship_bound_ms(lambda C: 9 * C * 4)
@@ -2771,7 +3233,11 @@ def main():
                                                  "peak_mb", "pool_mb", "remat", "held")}
     log(json.dumps({"captured_steps": captured_steps}))
     log(json.dumps({"phase14": p14}))
-    log(json.dumps({"kernels": [
+    log(json.dumps({"phase15": p15}))
+    log(json.dumps({"phase16": p16}))
+    log(json.dumps({"phase17": p17}))
+    replay_names = dict(zip((k.__name__ for k in TRAIN_KERNELS), (n for n, _ in MNV2_REPLAY)))
+    kernels = [
         dict(name="depthwise3x3", route="cuda",
              source="dorknet_tpu_torch/csrc/depthwise3x3.cu",
              replaces="dorknet_tpu/ops/pallas/depthwise.py:192",
@@ -2819,7 +3285,19 @@ def main():
              replaces="dorknet_tpu/ops/pallas/matmul.py:78", launches=ab_launches[1],
              launches_by_route=ab_routes[1], captured_replay_launches=replayed(*GEMM_KERNELS),
              phase14_launches=p14_gemm[1], **mm_stats),
-    ]}))
+    ]
+    for entry in kernels:
+        # launches in each run of phases 15-17 (counts set to 0 just before
+        # each, read just after), and in one replay of phase 16's captured step
+        name = entry["name"]
+        entry["phase15_launches"] = {run: counts[name] for run, counts in p15_launches.items()}
+        entry["phase16_launches"] = {run: counts[name] for run, counts in p16_launches.items()}
+        if name in replay_names:
+            entry["phase16_launches"]["captured_replay"] = p16_replay[replay_names[name]]
+        elif name in ("matmul", "matmul_bn_stats"):  # the three GEMM kernels, by name
+            entry["phase16_launches"]["captured_replay"] = sum(p16_replay[n] for n in GEMM_KERNELS)
+        entry["phase17_launches"] = p17_launches[name]
+    log(json.dumps({"kernels": kernels}))
     log("card:", card_line())
     log("chip_smoke: {:.1f} s in all".format(time.perf_counter() - _START))
     log(json.dumps({"ok": True, "device": {

@@ -7,8 +7,9 @@ from dorknet_tpu_torch.layers.depthwise_convolution import DepthwiseConvLayer
 from dorknet_tpu_torch.layers.pointwise_convolution import PointwiseConvLayer
 from dorknet_tpu_torch.layers.dense_layer import DenseLayer
 from dorknet_tpu_torch.layers.batch_norm import BatchNormLayer
-from dorknet_tpu_torch.layers.activations import ReLu, IdentityLayer
-from dorknet_tpu_torch.layers.pooling import GlobalAveragePoolingLayer
+from dorknet_tpu_torch.layers.activations import ReLu, ReLu6, IdentityLayer
+from dorknet_tpu_torch.layers.pooling import GlobalAveragePoolingLayer, MaxPoolLayer
+from dorknet_tpu_torch.layers.reshape import ReshapeLayer
 from dorknet_tpu_torch.layers.residual_block import ResidualBlock
 from dorknet_tpu_torch.layers.losses import SoftmaxWithCrossEntropy
 
@@ -20,8 +21,11 @@ __all__ = [
     "DenseLayer",
     "BatchNormLayer",
     "ReLu",
+    "ReLu6",
     "IdentityLayer",
     "GlobalAveragePoolingLayer",
+    "MaxPoolLayer",
+    "ReshapeLayer",
     "ResidualBlock",
     "SoftmaxWithCrossEntropy",
 ]

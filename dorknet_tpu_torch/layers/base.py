@@ -17,11 +17,14 @@ and buffers from such trees of numpy arrays, without transposing anything.
 ``ResidualBlock``).
 
 ``save_to_h5(open_f, save_grads=True)`` writes a layer in the reference's h5
-schema and ``load_from_h5(open_f)`` reads it back. The ``grads/...``
-datasets hold the gradients of the last ``network.backward()`` and zeros
-before one: the JAX layers start from zeros and only a ``backward()``
-changes them (its trainer never does), and the JAX loader reads
-``grads/weights`` by default, so a file without them would not load there.
+schema and ``load_from_h5(open_f, load_grads=True)`` reads it back. The
+``grads/...`` datasets hold the gradients of the last ``network.backward()``,
+or of the last load, and zeros before either: the JAX layers start from
+zeros, and only a ``backward()`` (its trainer never calls one) or a load
+changes them. Like the JAX loader, ``load_from_h5`` reads the ``grads/...``
+datasets into ``grads`` (numpy arrays) by default and raises KeyError on a
+file written with ``save_grads=False``; ``load_grads=False`` reads such a
+file and leaves ``grads`` as they were.
 """
 
 import numpy as np
@@ -107,12 +110,13 @@ class Layer(nn.Module):
     def save_to_h5(self, open_f, save_grads=True):
         raise NotImplementedError
 
-    def load_from_h5(self, open_f):
+    def load_from_h5(self, open_f, load_grads=True):
         raise NotImplementedError
 
     def _grads_to_save(self):
-        """Each parameter's gradient from the last ``network.backward()``,
-        or zeros of its shape before one (the JAX layers' initial grads)."""
+        """Each parameter's gradient from the last ``network.backward()`` or
+        load, or zeros of its shape before either (the JAX layers' initial
+        grads)."""
         return {name: self.grads[name] if name in self.grads
                 else np.zeros(tuple(p.shape), np.float32)
                 for name, p in self.named_parameters(recurse=False)}
@@ -124,14 +128,17 @@ class Layer(nn.Module):
                                  self._grads_to_save(), self.weight_regulariser,
                                  self.with_bias, save_grads=save_grads)
 
-    def _load_weights_from_h5(self, open_f):
-        """The weights/bias/regulariser block shared by the conv, depthwise,
-        pointwise and dense layers (``self.with_bias`` already read)."""
-        w, b, self.weight_regulariser = h5io.load_param_datasets(
-            open_f, self.layer_name, self.with_bias)
+    def _load_weights_from_h5(self, open_f, load_grads):
+        """The weights/bias/regulariser/grads block shared by the conv,
+        depthwise, pointwise and dense layers (``self.with_bias`` already
+        read)."""
+        w, b, self.weight_regulariser, grads = h5io.load_param_datasets(
+            open_f, self.layer_name, self.with_bias, load_grads=load_grads)
         self.weights = nn.Parameter(torch.from_numpy(w))
         if b is not None:
             self.bias = nn.Parameter(torch.from_numpy(b))
+        if load_grads:
+            self.grads = grads
 
 
 def init_weights(shape, initialiser, fan_in, fan_out):

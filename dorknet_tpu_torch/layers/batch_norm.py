@@ -131,7 +131,7 @@ class BatchNormLayer(Layer):
                 h5io.save_array(open_f, "{}/grads/{}".format(self.layer_name, name),
                                 grads[name])
 
-    def load_from_h5(self, open_f):
+    def load_from_h5(self, open_f, load_grads=True):
         info = open_f[self.layer_name + "/layer_info"].attrs
         self.eps = float(info["eps"])
         self.incoming_chans = int(info["incoming_chans"])
@@ -148,6 +148,8 @@ class BatchNormLayer(Layer):
         self.beta = nn.Parameter(read("beta"))
         self.running_mean = read("running_mean")
         self.running_std = read("running_std")
+        if load_grads:
+            self.grads = {name: read("grads/" + name).numpy() for name in ("gamma", "beta")}
 
 
 @contextlib.contextmanager

@@ -54,7 +54,7 @@ class ConvLayer(Layer):
             f_cols=self.f_cols, stride=self.stride, padding=self.padding)
         self._save_weights_to_h5(open_f, save_grads)
 
-    def load_from_h5(self, open_f):
+    def load_from_h5(self, open_f, load_grads=True):
         info = open_f[self.layer_name + "/layer_info"].attrs
         self.num_filters = int(info["num_filters"])
         self.filter_chans = int(info["filter_chans"])
@@ -63,4 +63,4 @@ class ConvLayer(Layer):
         self.f_cols = int(info["f_cols"])
         self.stride = int(info["stride"])
         self.padding = int(info["padding"])
-        self._load_weights_from_h5(open_f)
+        self._load_weights_from_h5(open_f, load_grads)

@@ -44,9 +44,9 @@ class DenseLayer(Layer):
             with_bias=self.with_bias)
         self._save_weights_to_h5(open_f, save_grads)
 
-    def load_from_h5(self, open_f):
+    def load_from_h5(self, open_f, load_grads=True):
         info = open_f[self.layer_name + "/layer_info"].attrs
         self.incoming_chans = int(info["incoming_chans"])
         self.output_dim = int(info["output_dim"])
         self.with_bias = bool(info["with_bias"])
-        self._load_weights_from_h5(open_f)
+        self._load_weights_from_h5(open_f, load_grads)

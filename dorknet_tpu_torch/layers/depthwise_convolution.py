@@ -56,7 +56,7 @@ class DepthwiseConvLayer(Layer):
             stride=self.stride, padding=self.padding)
         self._save_weights_to_h5(open_f, save_grads)
 
-    def load_from_h5(self, open_f):
+    def load_from_h5(self, open_f, load_grads=True):
         info = open_f[self.layer_name + "/layer_info"].attrs
         self.num_filters = int(info["num_filters"])
         self.with_bias = bool(info["with_bias"])
@@ -64,4 +64,4 @@ class DepthwiseConvLayer(Layer):
         self.f_cols = int(info["f_cols"])
         self.stride = int(info["stride"])
         self.padding = int(info["padding"])
-        self._load_weights_from_h5(open_f)
+        self._load_weights_from_h5(open_f, load_grads)

@@ -22,5 +22,5 @@ class SoftmaxWithCrossEntropy(Layer):
     def save_to_h5(self, open_f, save_grads=True):
         h5io.create_layer_info(open_f, self.layer_name, "SoftmaxWithCrossEntropy")
 
-    def load_from_h5(self, open_f):
+    def load_from_h5(self, open_f, load_grads=True):
         pass

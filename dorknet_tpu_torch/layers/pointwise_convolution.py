@@ -54,11 +54,11 @@ class PointwiseConvLayer(Layer):
             num_channels=self.num_channels, stride=self.stride)
         self._save_weights_to_h5(open_f, save_grads)
 
-    def load_from_h5(self, open_f):
+    def load_from_h5(self, open_f, load_grads=True):
         info = open_f[self.layer_name + "/layer_info"].attrs
         self.num_filters = int(info["num_filters"])
         self.num_channels = int(info["num_channels"])
         stride = info.get("stride", None)
         self.stride = int(stride) if stride else 1
         self.with_bias = bool(info["with_bias"])
-        self._load_weights_from_h5(open_f)
+        self._load_weights_from_h5(open_f, load_grads)

@@ -122,16 +122,16 @@ class ResidualBlock(Layer):
         for l in self._children():
             l.save_to_h5(open_f, save_grads=save_grads)
 
-    def load_from_h5(self, open_f):
+    def load_from_h5(self, open_f, load_grads=True):
         info = open_f[self.layer_name + "/layer_info"].attrs
         for l_type, layer_name in zip(info["layer_type_list"], info["layer_name_list"]):
             layer = get_layer_class(l_type)(layer_name)
-            layer.load_from_h5(open_f)
+            layer.load_from_h5(open_f, load_grads=load_grads)
             self.layer_list.append(layer)
         if info.get("skip_projection_type", None):
             self.skip_projection = get_layer_class(info["skip_projection_type"])(
                 info["skip_projection_name"])
-            self.skip_projection.load_from_h5(open_f)
+            self.skip_projection.load_from_h5(open_f, load_grads=load_grads)
         self.post_skip_activation = get_layer_class(info["post_skip_activation_type"])(
             info["post_skip_activation_name"])
-        self.post_skip_activation.load_from_h5(open_f)
+        self.post_skip_activation.load_from_h5(open_f, load_grads=load_grads)

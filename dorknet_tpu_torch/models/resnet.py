@@ -6,6 +6,10 @@ through a stride-2 depthwise and a pointwise skip projection), global
 average pooling and a dense classifier. Layer names and construction order
 are the JAX package's, so the same ``np.random.seed`` builds bit-equal
 weights and the reference's checkpoints load by name.
+
+``build_resnet18_plain`` builds the reference's ``add_res_block(
+depthwise_sep=False)`` variant: each block two 3x3 ``ConvLayer``s
+(``F.conv2d``, as the JAX package leaves them to XLA) with batch norms.
 """
 
 from dorknet_tpu_torch.layers import (
@@ -43,18 +47,34 @@ class ResNet18(FeedForwardNetwork):
         return layer_list
 
     def add_res_block(self, layer_name, first_filter_block_shape, downsample=False,
-                      weight_regulariser_strength=0.0001):
+                      weight_regulariser_strength=0.0001, depthwise_sep=False):
         num_filters, incoming_chans, f_rows, f_cols = first_filter_block_shape
-        layer_list = self.depthwise_sep_layer(
-            layer_name + "_dw1", incoming_chans, first_filter_block_shape,
-            stride=2 if downsample else 1, padding=1,
-            pointwise_weight_regulariser=l2(strength=weight_regulariser_strength),
-            final_relu=True)
-        layer_list += self.depthwise_sep_layer(
-            layer_name + "_dw2", num_filters,
-            (num_filters, num_filters, f_rows, f_cols), stride=1, padding=1,
-            pointwise_weight_regulariser=l2(strength=weight_regulariser_strength),
-            final_relu=False)
+        if depthwise_sep:
+            layer_list = self.depthwise_sep_layer(
+                layer_name + "_dw1", incoming_chans, first_filter_block_shape,
+                stride=2 if downsample else 1, padding=1,
+                pointwise_weight_regulariser=l2(strength=weight_regulariser_strength),
+                final_relu=True)
+            layer_list += self.depthwise_sep_layer(
+                layer_name + "_dw2", num_filters,
+                (num_filters, num_filters, f_rows, f_cols), stride=1, padding=1,
+                pointwise_weight_regulariser=l2(strength=weight_regulariser_strength),
+                final_relu=False)
+        else:
+            layer_list = [
+                ConvLayer(layer_name + "_conv1", filter_block_shape=first_filter_block_shape,
+                          stride=2 if downsample else 1, padding=1, with_bias=False,
+                          weight_regulariser=l2(strength=weight_regulariser_strength)),
+                BatchNormLayer(layer_name + "_bn1", input_dimension=4,
+                               incoming_chans=num_filters),
+                ReLu(layer_name + "_relu1"),
+                ConvLayer(layer_name + "_conv2",
+                          filter_block_shape=(num_filters, num_filters, f_rows, f_cols),
+                          stride=1, padding=1, with_bias=False,
+                          weight_regulariser=l2(strength=weight_regulariser_strength)),
+                BatchNormLayer(layer_name + "_bn2", input_dimension=4,
+                               incoming_chans=num_filters),
+            ]
         skip_proj = None
         if downsample:
             skip_proj = PointwiseConvLayer(
@@ -74,7 +94,7 @@ class ResNet18(FeedForwardNetwork):
         (512, 256, True), (512, 512, False),
     ]
 
-    def __init__(self, name, load_layers=True, num_classes=120):
+    def __init__(self, name, load_layers=True, num_classes=120, depthwise_sep=True):
         super().__init__(name)
         if not load_layers:
             return
@@ -92,9 +112,15 @@ class ResNet18(FeedForwardNetwork):
         self.add_layer(ReLu("pw0_relu"))
         for i, (out_ch, in_ch, down) in enumerate(self._BLOCKS, start=1):
             self.add_res_block("res{}".format(i), (out_ch, in_ch, 3, 3),
-                               downsample=down)
+                               downsample=down, depthwise_sep=depthwise_sep)
         self.add_layer(GlobalAveragePoolingLayer("global_pool1"))
         self.add_layer(DenseLayer("dense1", incoming_chans=512,
                                   output_dim=num_classes,
                                   weight_regulariser=l2(0.0001)))
         self.set_loss_layer(SoftmaxWithCrossEntropy("softmax1"))
+
+
+def build_resnet18_plain(name, num_classes=120):
+    """The ResNet-18 without depthwise-separable blocks (the reference's
+    ``add_res_block(depthwise_sep=False)`` path)."""
+    return ResNet18(name, load_layers=True, num_classes=num_classes, depthwise_sep=False)

@@ -10,7 +10,11 @@ the data loss plus every regularisation term with respect to every
 parameter; ``backward()`` then hands each layer its gradients, and
 ``optimiser.update_weights()`` applies them. The reported loss uses the
 reference's accounting, which leaves out the skip projections' terms
-(``ResidualBlock.reg_loss``). ``test`` is the reference's accuracy loop.
+(``ResidualBlock.reg_loss``). ``forward(X, terminal_layer_name=name)`` is
+the reference's feature tap: it runs the layers up to the named top-level
+layer and returns ``(0, its NCHW output)``; in train mode batch norm
+normalises by the batch statistics and, unlike the reference, leaves its
+running stats as they are. ``test`` is the reference's accuracy loop.
 Weights come from a reference h5+json checkpoint
 (``load_network_from_json_and_h5``; ``save_weights_to_h5`` and
 ``save_layer_structure_to_json`` write one), from the seeded constructors
@@ -28,6 +32,7 @@ from torch import nn
 
 # importing the layers package (through any of its modules) fills the registry
 from dorknet_tpu_torch.layers.base import Layer, to_nchw, to_nhwc
+from dorknet_tpu_torch.layers.batch_norm import running_stats_frozen
 from dorknet_tpu_torch.layers.losses import SoftmaxWithCrossEntropy
 from dorknet_tpu_torch.layers.registry import get_layer_class
 from dorknet_tpu_torch.ops.loss import softmax_probs
@@ -38,8 +43,20 @@ def _to_numpy(tree):
         return {k: _to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_numpy(v) for v in tree]
+    if isinstance(tree, np.ndarray):  # grads read from an h5 file
+        return tree.copy()
     # a copy: training updates the parameters in place
     return tree.detach().to("cpu", copy=True).numpy()
+
+
+def _tap_index(net, terminal_layer_name):
+    """The index of the top-level layer called ``terminal_layer_name``."""
+    for i, l in enumerate(net.layers):
+        if l.layer_name == terminal_layer_name:
+            return i
+    raise ValueError(
+        "terminal_layer_name '{}' matches no layer (have: {})".format(
+            terminal_layer_name, [l.layer_name for l in net.layers]))
 
 
 class FeedForwardNetwork(nn.Module):
@@ -87,6 +104,12 @@ class FeedForwardNetwork(nn.Module):
                 full_reg = full_reg + l.reg_loss_full()
         return x, reported_reg, full_reg
 
+    def _run_prefix(self, x, index, train=False):
+        """layers[0..index] over NHWC x; the rest do not run."""
+        for l in self.layers[:index + 1]:
+            x = l.fapply(x, train)
+        return x
+
     def _test_fn(self, X):
         """Test-mode forward of an NCHW float32 tensor on the network's
         device: softmax probs when a loss layer is set, else the NCHW
@@ -123,13 +146,25 @@ class FeedForwardNetwork(nn.Module):
                  for p, g in zip(params, grads)]
         return (data_loss + reported_reg).detach(), probs, grads
 
-    def forward(self, X, y_one_hot=None, test_mode=False):
+    def forward(self, X, y_one_hot=None, test_mode=False, terminal_layer_name=None):
         """test_mode: ``(0, probs)`` (or the last layer's NCHW output
         without a loss layer). Train mode with a loss layer: ``(loss,
         probs)``, the gradients kept for ``backward()``; without one, ``(0,
         output)`` after a train-mode pass that updates batch norm's running
-        stats."""
+        stats. With ``terminal_layer_name``: ``(0, the NCHW output of that
+        top-level layer)``, the later layers not run; in test mode only the
+        layers up to it need set running stats, in train mode batch norm
+        normalises by the batch statistics and moves no running stat."""
         X = torch.as_tensor(X, dtype=torch.float32, device=self.device())
+        if terminal_layer_name is not None:
+            index = _tap_index(self, terminal_layer_name)
+            if test_mode:
+                self._require_bn_initialized("test-mode feature tap",
+                                             layers=self.layers[:index + 1])
+                with torch.inference_mode():
+                    return 0, to_nchw(self._run_prefix(to_nhwc(X), index))
+            with torch.no_grad(), running_stats_frozen(self):
+                return 0, to_nchw(self._run_prefix(to_nhwc(X), index, train=True))
         if test_mode:
             self._require_bn_initialized("test-mode forward")
             with torch.inference_mode():
@@ -156,10 +191,12 @@ class FeedForwardNetwork(nn.Module):
                            for name, p in l.named_parameters(recurse=False)}
         self._pending_grads = None
 
-    def _require_bn_initialized(self, what):
+    def _require_bn_initialized(self, what, layers=None):
         """Inference normalises by the running stats: refuse to run before
-        they were set, naming the layers that lack them."""
-        bad = [l.layer_name for l in self.layers if not l.bn_initialized()]
+        they were set, naming the layers that lack them. ``layers``
+        restricts the check to a subset (the trunk before a feature tap)."""
+        layers = self.layers if layers is None else layers
+        bad = [l.layer_name for l in layers if not l.bn_initialized()]
         if bad:
             raise ValueError(
                 "{} needs initialised batch-norm running statistics; run a "

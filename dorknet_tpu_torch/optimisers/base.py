@@ -87,7 +87,8 @@ class Optimiser:
                         "forward() and backward(); layer '{}' has none for "
                         "'{}'".format(layer.layer_name, name))
                 params.append(p)
-                grads.append(layer.grads[name])
+                # a loaded checkpoint's grads are numpy arrays
+                grads.append(torch.as_tensor(layer.grads[name], device=p.device))
         return params, grads
 
     def update_weights(self):

@@ -72,11 +72,21 @@ def load_regulariser(dset):
     return None
 
 
-def load_param_datasets(open_f, layer_name, with_bias):
-    """-> (weights, bias or None, regulariser) as float32 numpy arrays."""
+def _read(open_f, path):
+    return np.asarray(open_f[path][:], dtype=np.float32)
+
+
+def load_param_datasets(open_f, layer_name, with_bias, load_grads=True):
+    """-> (weights, bias or None, regulariser, grads) as float32 numpy
+    arrays; grads holds ``grads/weights`` (and ``grads/bias``) when
+    ``load_grads``, else it is empty. As in the JAX loader, a file without
+    them raises KeyError when ``load_grads`` is set."""
     dset = open_f[layer_name + "/weights"]
     weights = np.asarray(dset[:], dtype=np.float32)
-    bias = (np.asarray(open_f[layer_name + "/bias"][:], dtype=np.float32)
-            if with_bias else None)
-    return weights, bias, load_regulariser(dset)
-
+    bias = _read(open_f, layer_name + "/bias") if with_bias else None
+    grads = {}
+    if load_grads:
+        grads["weights"] = _read(open_f, layer_name + "/grads/weights")
+        if with_bias:
+            grads["bias"] = _read(open_f, layer_name + "/grads/bias")
+    return weights, bias, load_regulariser(dset), grads

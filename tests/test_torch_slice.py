@@ -178,8 +178,8 @@ def test_unset_batch_norm_refuses_to_run():
 
 
 def test_port_imports_no_jax():
-    """(f) The port imports neither jax, cv2, tqdm nor dorknet_tpu, and h5py
-    only inside the h5 functions."""
+    """(f) The port imports neither jax, cv2, tqdm, sklearn nor dorknet_tpu,
+    and h5py only inside the h5 functions."""
     # torch itself may import tqdm (torch.hub does where it is installed):
     # count only what the port's modules bring in beyond torch
     code = ("import sys, torch\n"
@@ -201,7 +201,13 @@ def test_port_imports_no_jax():
             "import dorknet_tpu_torch.data_loading.image_preprocessor\n"
             "import dorknet_tpu_torch.data_loading.image_data_loader\n"
             "import dorknet_tpu_torch.examples.imagenet_dogs_225_resnet_18_depsep\n"
-            "bad = [m for m in ('jax', 'h5py', 'cv2', 'tqdm', 'dorknet_tpu')\n"
+            "import dorknet_tpu_torch.cam, dorknet_tpu_torch.utils.render\n"
+            "import dorknet_tpu_torch.examples.synthetic_cam_demo\n"
+            "import dorknet_tpu_torch.examples.MNIST_basic_convnet\n"
+            "import dorknet_tpu_torch.data_loading.MNIST_data_loading\n"
+            "import dorknet_tpu_torch.layers.reshape\n"
+            "import dorknet_tpu_torch.models.mobilenet_v2, dorknet_tpu_torch.models.mnist_convnet\n"
+            "bad = [m for m in ('jax', 'h5py', 'cv2', 'tqdm', 'sklearn', 'dorknet_tpu')\n"
             "       if m in sys.modules and m not in base]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
