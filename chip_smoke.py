@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths, its checkpoints and
-its flagship training script, CAM, MobileNet-V2 and the MNIST script, and
-its kernels' A/B once on one NVIDIA GPU and check them.
+its flagship training script, CAM, the MNIST script and the stretch zoo
+(MobileNet-V2 and -V3-Large, EfficientNet-Lite0, ResNet-50), and its
+kernels' A/B once on one NVIDIA GPU and check them.
 
 Usage, from the root of a checkout, on a machine with a CUDA card, nvcc and
 nvidia-smi:
@@ -194,7 +195,17 @@ Phases (each checks its results; any failure ends the run non-zero with no
     through ``runpy`` on synthetic npy files in ``scripts/MNISTprepper.py``'s
     layout, one epoch of 10 steps at batch 200 and a test: its metrics line
     and its launches (``batch_norm_stats`` only, 5 a step in the trainer's
-    three eager steps).
+    three eager steps);
+18. the second half of the stretch zoo at full width (224 px, 1,000
+    classes, batch 64), through phase 16's helpers: 18a-18d MobileNet-V3-Large
+    as 16a-16d (9 depthwise 3x3 launches a served dispatch; an eager step
+    9/9/9 and 46 ``batch_norm_stats`` launches, its CPU twin; a replay's
+    profile names them; the kernels at its 8 distinct 3x3 shapes, and its 6
+    5x5 layers under cuDNN, forward and backward, for the record, their
+    kernels a class of their own in the served profile); 18e
+    EfficientNet-Lite0 and ResNet-50 served BN-folded (7 and 0 depthwise
+    launches a dispatch; probs within 1e-4 of the CPU forward), one eager
+    step each (7/7/7/49 and 0/0/0/49) and the captured step's time.
 
 The line before the last is a JSON object of the kernels of the paths (with
 each kernel's launches by route, and both routes' times, device times
@@ -202,9 +213,9 @@ included; the depthwise forward's entry also carries its launches in the
 folded served run and in the reloaded programs' runs; every entry its
 launches in one replay of each captured step, by name in the profile, and
 the training kernels their wrapper launches over phase 13b's driven
-steps, and every entry its launches in each run of phases 14-17 and in one
-replay of phase 16's captured step); JSON objects of phase 13b's and
-phases 14-17's numbers come before it; the last line is
+steps, and every entry its launches in each run of phases 14-18 and in one
+replay of phase 16's and phase 18's captured steps); JSON objects of phase
+13b's and phases 14-18's numbers come before it; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -234,7 +245,8 @@ from dorknet_tpu_torch.data_loading import (DeviceResidentDataset, ImageDataLoad
                                             train_pipeline, write_packed_arrays)
 from dorknet_tpu_torch.layers.base import to_nhwc
 from dorknet_tpu_torch.examples import synthetic_cam_demo
-from dorknet_tpu_torch.models import MobileNetV2, ResNet18
+from dorknet_tpu_torch.models import (EfficientNetLite0, MobileNetV2, MobileNetV3Large, ResNet18,
+                                      ResNet50)
 from dorknet_tpu_torch.layers import BatchNormLayer
 from dorknet_tpu_torch.network import (BatchingServer, InferenceRunner, Trainer,
                                        load_serving_artifact)
@@ -636,14 +648,15 @@ def phase_serving(runner, X):
 
 
 ELEMENTWISE = "elementwise and reductions"  # kernel_class's name for them
+DW_CUDNN = "depthwise under cuDNN (the 5x5 layers)"  # and for these
 
 
 def forward_times(fwds, x):
     """Each of ``fwds`` (name -> test-mode forward) on x, the variants in
     turns (a, b, b, a): the mean of the events' medians and of the device
     times, then a profile of 5 calls each. Returns name -> dict(events,
-    device, kernels, busy, idle, elementwise, gemm, dw_forward): ms a call,
-    and the idle share of the profiled span."""
+    device, kernels, busy, idle, elementwise, gemm, dw_forward, dw5): ms a
+    call, and the idle share of the profiled span."""
     names = list(fwds)
     ev, dev = {k: [] for k in names}, {k: [] for k in names}
     for k in names + names[::-1]:
@@ -657,7 +670,8 @@ def forward_times(fwds, x):
                       kernels=n_kernels, busy=busy, idle=max(0.0, 1.0 - busy / span),
                       elementwise=by_class.get(ELEMENTWISE, 0.0),
                       gemm=by_class.get("GEMM", 0.0),
-                      dw_forward=by_class.get("depthwise forward", 0.0))
+                      dw_forward=by_class.get("depthwise forward", 0.0),
+                      dw5=by_class.get(DW_CUDNN, 0.0))
     return out
 
 
@@ -1274,12 +1288,12 @@ def phase_train_twin():
     require(worst <= 1.0, "card and CPU parameters disagree")
 
 
-def cudnn_grad(g, x, w, stride, mask):
+def cudnn_grad(g, x, w, stride, mask, padding=1):
     """cuDNN's grouped-conv backward, the function autograd of
     F.conv2d(groups=C) calls, on the channels-last views (a yardstick only)."""
     return torch.ops.aten.convolution_backward(
         g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.unsqueeze(1), None,
-        [stride, stride], [1, 1], [1, 1], False, [0, 0], x.shape[3], mask)
+        [stride, stride], [padding, padding], [1, 1], False, [0, 0], x.shape[3], mask)
 
 
 def phase_bwd_times():
@@ -1389,6 +1403,8 @@ def kernel_class(name):
         return "batch-norm statistics kernel"
     if "matmul_kernel" in n or "matmul_tc_kernel" in n:
         return "hand-written GEMM"
+    if "conv2d_c1_k1" in n:  # cuDNN's depthwise kernel, by its name on an H100
+        return DW_CUDNN
     if "gemm" in n or "sm90_xmma" in n or "cutlass" in n or "cublas" in n:
         return "GEMM"
     if "conv" in n or "cudnn" in n or "dgrad" in n or "wgrad" in n:
@@ -2738,21 +2754,78 @@ CAM_MAP_TOL = 1e-3    # maps in [0, 1], absolute, where the CPU map is not all 0
 # the flagship's depthwise layers up to a tap (res4: 2 a block), and its
 # batch norms up to res8 (all 34 train-mode ones)
 RES4_DW = 8
-MNV2_IMAGE = (3, 224, 224)
-MNV2_CLASSES = 1000
-# MobileNet-V2's depthwise layers: (H = W of the input, C, stride, how many)
+# the depthwise layers of phases 16 and 18 at 224 px: (H = W of the input, C,
+# stride, how many); 3x3 ones take the hand kernels, 5x5 ones F.conv2d
 MNV2_DW = [(112, 32, 1, 1), (112, 96, 2, 1), (56, 144, 1, 1), (56, 144, 2, 1),
            (28, 192, 1, 2), (28, 192, 2, 1), (14, 384, 1, 4), (14, 576, 1, 2),
            (14, 576, 2, 1), (7, 960, 1, 3)]
-MNV2_DW_LAYERS = sum(n for *_, n in MNV2_DW)  # 17
-MNV2_BN_LAYERS = 52
-MNV2_WANT = [MNV2_DW_LAYERS] * 3 + [MNV2_BN_LAYERS]
-MNV2_LR = 0.05 * (BATCH / 200.0)
+V3L_DW = [(112, 16, 1, 1), (112, 64, 2, 1), (56, 72, 1, 1), (28, 240, 2, 1), (14, 200, 1, 1),
+          (14, 184, 1, 2), (14, 480, 1, 1), (14, 672, 1, 1)]
+V3L_DW5 = [(56, 72, 2, 1), (28, 120, 1, 2), (14, 672, 2, 1), (7, 960, 1, 2)]
+LITE0_DW = [(112, 32, 1, 1), (112, 96, 2, 1), (56, 144, 1, 1), (28, 240, 2, 1), (14, 480, 1, 2),
+            (7, 1152, 1, 1)]
+LITE0_DW5 = [(56, 144, 2, 1), (28, 240, 1, 1), (14, 480, 1, 1), (14, 672, 1, 2), (14, 672, 2, 1),
+             (7, 1152, 1, 3)]
 MNV2_NUDGE = 1e-6  # the CPU twin's yardstick: its input scaled by 1 + this
 # the twin's update, relative L2 over all parameters: a 1e-6 nudge of the
 # input moves the CPU's own update by about 0.8% (relative L2 at 224 px,
 # batch 4), the early layers' 0.01-scale weights taking most of it
 MNV2_UPDATE_TOL = 5e-2
+
+
+class Zoo:
+    """A model of the stretch zoo as phases 16 and 18 drive it at full
+    width: its class and constructor name, the seed of its served batch, its
+    depthwise layers (``dw`` 3x3, ``dw5`` 5x5) and its batch norms."""
+
+    def __init__(self, name, cls, tag, seed, dw, bn_layers, dw5=()):
+        self.name, self.cls, self.tag, self.seed = name, cls, tag, seed
+        self.dw, self.dw5, self.bn_layers = list(dw), list(dw5), bn_layers
+        self.image, self.classes = (3, 224, 224), 1000
+        self.lr = 0.05 * (BATCH / 200.0)
+
+    @property
+    def dw_layers(self):
+        return sum(n for *_, n in self.dw)
+
+    @property
+    def want(self):
+        """forward/dx/dw/bn_stats launches of one eager training step."""
+        return [self.dw_layers] * 3 + [self.bn_layers]
+
+    @property
+    def replay(self):
+        """(kernel name, count) of one replay of its captured step."""
+        return (("depthwise3x3_fwd_vec_kernel", self.dw_layers),
+                ("depthwise3x3_dx_vec_kernel", self.dw_layers),
+                ("depthwise3x3_dw_vec_kernel", self.dw_layers),
+                ("bn_stats_partial_kernel", self.bn_layers)) + tuple((n, 0) for n in GEMM_KERNELS)
+
+    def fresh(self):
+        """The network from np.random.seed(0), on the CPU."""
+        np.random.seed(0)
+        return self.cls(self.tag, num_classes=self.classes)
+
+    def pair(self):
+        """The network on the CPU with the serving weights and calibrated
+        statistics of utils/seeded.py, and its copy on the card."""
+        net_cpu = self.fresh()
+        seed_serving_weights(net_cpu, seed=0, calib_hw=self.image[1:])
+        net_gpu = self.fresh()
+        net_gpu.load_numpy_params(net_cpu.gather_params(), net_cpu.gather_states())
+        return net_cpu, net_gpu.to(DEVICE)
+
+    def batches(self, seed, steps, B):
+        rng = np.random.RandomState(seed)
+        X = rng.randn(steps, B, *self.image).astype(np.float32)
+        y = np.eye(self.classes, dtype=np.float32)[rng.randint(0, self.classes, (steps, B))]
+        return X, y
+
+
+MNV2 = Zoo("MobileNet-V2", MobileNetV2, "mnv2", 16, MNV2_DW, 52)
+V3L = Zoo("MobileNet-V3-Large", MobileNetV3Large, "mnv3l", 18, V3L_DW, 46, dw5=V3L_DW5)
+LITE0 = Zoo("EfficientNet-Lite0", EfficientNetLite0, "enl0", 181, LITE0_DW, 49, dw5=LITE0_DW5)
+RESNET50 = Zoo("ResNet-50", ResNet50, "resnet50", 182, [], 49)
 MNIST_TWIN = "dorknet_tpu_torch.examples.MNIST_basic_convnet"
 MNIST_BN_LAYERS = 5
 
@@ -2875,100 +2948,91 @@ def phase_cam(net_cpu, net_gpu, tmp):
     return launches, numbers
 
 
-def mnv2_pair():
-    """MobileNet-V2 at full width on the CPU with the serving weights and
-    calibrated statistics of utils/seeded.py, and its copy on the card."""
-    net_cpu = fresh_mnv2()
-    seed_serving_weights(net_cpu, seed=0, calib_hw=MNV2_IMAGE[1:])
-    net_gpu = fresh_mnv2()
-    net_gpu.load_numpy_params(net_cpu.gather_params(), net_cpu.gather_states())
-    return net_cpu, net_gpu.to(DEVICE)
-
-
-def fresh_mnv2():
-    np.random.seed(0)
-    return MobileNetV2("mnv2", num_classes=MNV2_CLASSES)
-
-
-def mnv2_batches(seed, steps, B):
-    rng = np.random.RandomState(seed)
-    X = rng.randn(steps, B, *MNV2_IMAGE).astype(np.float32)
-    y = np.eye(MNV2_CLASSES, dtype=np.float32)[rng.randint(0, MNV2_CLASSES, (steps, B))]
-    return X, y
-
-
-def phase_mnv2_serving():
-    """Phase 16a. Returns the launches of each served run and the numbers."""
-    log("== phase 16a: MobileNet-V2 served ({} px, {} classes, batch {}; seeded weights, "
-        "calibrated statistics), unfolded and BN-folded".format(MNV2_IMAGE[1], MNV2_CLASSES,
-                                                                BATCH))
+def phase_zoo_serving(z, label, runs=("unfolded", "folded"), timed=True):
+    """Phase 16a / 18a (both runs, timed) and 18e (folded only). Returns the
+    launches of each served run and the numbers."""
+    log("== phase {}: {} served ({} px, {} classes, batch {}; seeded weights, calibrated "
+        "statistics), {}".format(label, z.name, z.image[1], z.classes, BATCH,
+                                 " and ".join(r if r == "unfolded" else "BN-folded"
+                                              for r in runs)))
     log("card:", card_line())
-    net_cpu, net_gpu = mnv2_pair()
-    X = np.random.RandomState(16).randn(BATCH, *MNV2_IMAGE).astype(np.float32)
-    runners = {"unfolded": InferenceRunner(net_gpu, batch_size=BATCH, device=DEVICE),
-               "folded": InferenceRunner(net_gpu, batch_size=BATCH, device=DEVICE,
-                                         fold_bn=True)}
+    net_cpu, net_gpu = z.pair()
+    X = np.random.RandomState(z.seed).randn(BATCH, *z.image).astype(np.float32)
+    runners = {r: InferenceRunner(net_gpu, batch_size=BATCH, device=DEVICE,
+                                  fold_bn=r == "folded") for r in runs}
+    want = [z.dw_layers, 0, 0, 0]
     launches, probs = {}, {}
     for name, runner in runners.items():
         probs[name], launches[name] = counted(lambda: runner.predict_probs(X))
         got = [launches[name][k.__name__] for k in TRAIN_KERNELS]
-        log("  {}: launches forward/dx/dw/bn_stats {} (want {})".format(
-            name, got, [MNV2_DW_LAYERS, 0, 0, 0]))
-        require(got == [MNV2_DW_LAYERS, 0, 0, 0], "{}: a layer missed its kernel".format(name))
-        require_vector_route("MobileNet-V2 " + name)
-        require(probs[name].shape == (BATCH, MNV2_CLASSES) and np.isfinite(probs[name]).all(),
+        log("  {}: launches forward/dx/dw/bn_stats {} (want {})".format(name, got, want))
+        require(got == want, "{} {}: a layer missed its kernel".format(z.name, name))
+        if z.dw_layers:
+            require_vector_route("{} {}".format(z.name, name))
+        require(probs[name].shape == (BATCH, z.classes) and np.isfinite(probs[name]).all(),
                 "{}: probs".format(name))
-    _, want = net_cpu.forward(X[:2], test_mode=True)
-    err = {name: float(np.abs(p[:2] - want.numpy()).max()) for name, p in probs.items()}
-    err["folded_vs_unfolded"] = float(np.abs(probs["folded"] - probs["unfolded"]).max())
-    log("  max|dprob|: vs the CPU forward on 2 images {} (limit 1e-4), folded vs unfolded on "
-        "{} images {:.3e} (limit 1e-4); max prob of the first 4 {}".format(
-            {k: "{:.3e}".format(v) for k, v in err.items() if k != "folded_vs_unfolded"},
-            BATCH, err["folded_vs_unfolded"], [round(float(p), 4)
-                                               for p in probs["unfolded"][:4].max(1)]))
-    require(max(err.values()) <= 1e-4, "MobileNet-V2 serving disagrees")
+    _, want_probs = net_cpu.forward(X[:2], test_mode=True)
+    err = {name: float(np.abs(p[:2] - want_probs.numpy()).max()) for name, p in probs.items()}
+    if len(runs) == 2:
+        err["folded_vs_unfolded"] = float(np.abs(probs["folded"] - probs["unfolded"]).max())
+    log("  max|dprob|: vs the CPU forward on 2 images {} (limit 1e-4){}; max prob of the first "
+        "4 {}".format({k: "{:.3e}".format(v) for k, v in err.items() if k in runs},
+                      ", folded vs unfolded on {} images {:.3e} (limit 1e-4)".format(
+                          BATCH, err["folded_vs_unfolded"]) if len(runs) == 2 else "",
+                      [round(float(p), 4) for p in probs[runs[0]][:4].max(1)]))
+    require(max(err.values()) <= 1e-4, "{} serving disagrees".format(z.name))
+    numbers = dict(max_abs_prob_err=err)
+    if not timed:
+        return launches, numbers
     x = torch.from_numpy(X).to(DEVICE)
     with torch.inference_mode():
         times = forward_times({k: r.network._test_fn for k, r in runners.items()}, x)
     for k, t in times.items():
         log("  {} forward, batch {}: events {:.3f} ms = {:.0f} img/s, device {:.3f} ms; {} "
-            "kernels, busy {:.3f} ms, idle {:.1%}, depthwise forward {:.3f} ms, elementwise "
+            "kernels, busy {:.3f} ms, idle {:.1%}, depthwise forward {:.3f} ms{}, elementwise "
             "{:.3f} ms, GEMM {:.3f} ms".format(
                 k, BATCH, t["events"], BATCH / t["events"] * 1e3, t["device"], t["kernels"],
-                t["busy"], t["idle"], t["dw_forward"], t["elementwise"], t["gemm"]))
-    return launches, dict(times=times, max_abs_prob_err=err)
+                t["busy"], t["idle"], t["dw_forward"],
+                ", 5x5 depthwise (cuDNN) {:.3f} ms".format(t["dw5"]) if z.dw5 else "",
+                t["elementwise"], t["gemm"]))
+    numbers["times"] = times
+    return launches, numbers
 
 
-def phase_mnv2_train():
-    """Phase 16b. Returns the eager step's launches and its numbers."""
-    log("== phase 16b: MobileNet-V2 trained by Trainer.step (eager, batch {}, fresh network "
-        "from np.random.seed(0), SGDMomentum)".format(BATCH))
-    net = fresh_mnv2()
-    trainer = Trainer(net, SGDMomentum(net, MNV2_LR, 0.9), device=DEVICE, cuda_graph=False)
-    X, y = mnv2_batches(16, 1, BATCH)
+def phase_zoo_train(z, label, twin=True):
+    """Phase 16b / 18b, and 18e's eager step (``twin=False``). Returns the
+    eager step's launches and its numbers."""
+    log("== phase {}: {} trained by Trainer.step (eager, batch {}, fresh network from "
+        "np.random.seed(0), SGDMomentum)".format(label, z.name, BATCH))
+    net = z.fresh()
+    trainer = Trainer(net, SGDMomentum(net, z.lr, 0.9), device=DEVICE, cuda_graph=False)
+    X, y = z.batches(z.seed, 1, BATCH)
     (loss, preds), counts = counted(lambda: trainer.step(X[0], y[0]))
     got = [counts[k.__name__] for k in TRAIN_KERNELS]
     log("  step: loss {:.6f}, launches forward/dx/dw/bn_stats {} (want {})".format(
-        float(loss), got, MNV2_WANT))
-    require(got == MNV2_WANT, "a MobileNet-V2 layer missed its kernel")
-    require_vector_route("MobileNet-V2 step", kernels=KERNELS)
+        float(loss), got, z.want))
+    require(got == z.want, "{}: a layer missed its kernel".format(z.name))
+    if z.dw_layers:
+        require_vector_route("{} step".format(z.name), kernels=KERNELS)
     require(np.isfinite(float(loss)), "non-finite loss")
     del trainer, net
+    if not twin:
+        return counts, dict(loss=float(loss))
     # the CPU twin: one step at batch 4 from the same fresh weights. The
     # flagship's per-parameter limit (1e-4 relative + 1e-5 absolute) cannot
-    # hold here: the fresh 0.01-scale weights under 52 batch norms amplify
-    # rounding, so the CPU alone, its input scaled by 1 + MNV2_NUDGE, moves
-    # the stem's and the first depthwise layer's weights tens of times that
-    # limit (logged beside the card's). The gate is the loss and the update
-    # as a whole (its relative L2 difference over all parameters); each
-    # kernel is held to its plain version at every MobileNet-V2 shape in 16d.
-    Xt, yt = mnv2_batches(17, 1, 4)
-    start = fresh_mnv2()
+    # hold here: the fresh 0.01-scale weights under some 50 batch norms
+    # amplify rounding, so the CPU alone, its input scaled by 1 + MNV2_NUDGE,
+    # moves the early layers' weights far past that limit (logged beside the
+    # card's). The gate is the loss and the update as a whole (its relative L2
+    # difference over all parameters); each kernel is held to its plain
+    # version at every shape of the model in 16d / 18d.
+    Xt, yt = z.batches(z.seed + 1, 1, 4)
+    start = z.fresh()
     names = [n for n, _ in start.named_parameters()]
     start = [p.detach() for p in start.parameters()]
     runs = []
     for device, scale in ((DEVICE, 1.0), ("cpu", 1.0), ("cpu", 1.0 + MNV2_NUDGE)):
-        net = fresh_mnv2()
+        net = z.fresh()
         t = Trainer(net, SGDMomentum(net, 0.05 * 4 / 200.0, 0.9), device=device,
                     cuda_graph=False)
         loss_t = float(t.step(Xt[0] * np.float32(scale), yt[0])[0])
@@ -2992,65 +3056,73 @@ def phase_mnv2_train():
         "flagship's per-element limit, largest: card {}, nudged CPU {}".format(
             got, want, rel, card_l2, MNV2_UPDATE_TOL, MNV2_NUDGE, cpu_l2,
             [(round(s, 2), n) for s, n in card_top], [(round(s, 2), n) for s, n in cpu_top]))
-    require(rel <= 1e-4, "MobileNet-V2: card and CPU losses disagree")
-    require(card_l2 <= MNV2_UPDATE_TOL, "MobileNet-V2: card and CPU updates disagree")
+    require(rel <= 1e-4, "{}: card and CPU losses disagree".format(z.name))
+    require(card_l2 <= MNV2_UPDATE_TOL, "{}: card and CPU updates disagree".format(z.name))
     return counts, dict(loss=float(loss), twin_loss_rel=rel, twin_update_rel_l2=card_l2,
                         cpu_nudged_update_rel_l2=cpu_l2, twin_param_of_limit=card_top[0][0],
                         cpu_nudged_param_of_limit=cpu_top[0][0])
 
 
-MNV2_REPLAY = (("depthwise3x3_fwd_vec_kernel", MNV2_DW_LAYERS),
-               ("depthwise3x3_dx_vec_kernel", MNV2_DW_LAYERS),
-               ("depthwise3x3_dw_vec_kernel", MNV2_DW_LAYERS),
-               ("bn_stats_partial_kernel", MNV2_BN_LAYERS)) + tuple((n, 0) for n in GEMM_KERNELS)
+def peak_mb(trainer, x, y):
+    """A step's peak memory over what was allocated before it, in MB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss, _ = trainer.step(x, y)
+    torch.cuda.synchronize()
+    require(np.isfinite(float(loss)), "non-finite loss")
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
 
 
-def phase_mnv2_captured():
-    """Phase 16c. Returns the captured trainer's own launches, one replay's
-    kernels by name and the numbers."""
-    log("== phase 16c: MobileNet-V2 captured steps against eager ones (batch {})".format(BATCH))
-    pair = graph_pair(make=fresh_mnv2, lr=MNV2_LR)
-    X, y = mnv2_batches(18, 1, BATCH)
+def phase_zoo_captured(z, label, full=True):
+    """Phase 16c / 18c (``full``: the replay's kernels by name, eager and
+    captured in turns, memory) and 18e (the captured step's time). Returns
+    the captured trainer's own launches, one replay's kernels by name ({}
+    unless ``full``) and the numbers."""
+    log("== phase {}: {} captured steps{} (batch {})".format(
+        label, z.name, " against eager ones" if full else "", BATCH))
+    pair = graph_pair(make=z.fresh, lr=z.lr, flags=(True, False) if full else (True,))
+    X, y = z.batches(z.seed + 2, 1, BATCH)
     x, yy = torch.from_numpy(X[0]).to(DEVICE), torch.from_numpy(y[0]).to(DEVICE)
     captured = pair[0]
     # adoption, warm-up and capture: three eager steps' launches, then replays
     _, run = counted(lambda: [captured.step(x, yy) for _ in range(4)])
     log("  the captured trainer's first 4 calls: launches {}".format(run))
-    require([run[k.__name__] for k in TRAIN_KERNELS] == [3 * n for n in MNV2_WANT],
+    require([run[k.__name__] for k in TRAIN_KERNELS] == [3 * n for n in z.want],
             "the captured trainer's eager steps")
-    replay = require_replay_kernels("MobileNet-V2 Trainer.step", lambda: captured.step(x, yy),
-                                    MNV2_REPLAY)
-    times = step_times(pair, lambda t: t.step(x, yy), "MobileNet-V2 Trainer.step", BATCH)
-    peak = {}
-    for which, t in zip(("captured", "eager"), pair):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        loss, _ = t.step(x, yy)
-        torch.cuda.synchronize()
-        peak[which] = (torch.cuda.max_memory_allocated() - base) / 1e6
-        require(np.isfinite(float(loss)), "non-finite loss")
+    pool = pool_bytes(captured._pool) / 1e6
+    if not full:
+        ms = cuda_ms(lambda: captured.step(x, yy), warmup=2, iters=10)
+        log("  captured step: {:.3f} ms = {:.0f} img/s; graph pool {:.1f} MB; capture {:.3f} "
+            "s".format(ms, BATCH / ms * 1e3, pool, captured.capture_seconds))
+        return run, {}, dict(captured_ms=ms, pool_mb=pool,
+                             capture_seconds=captured.capture_seconds)
+    replay = require_replay_kernels("{} Trainer.step".format(z.name),
+                                    lambda: captured.step(x, yy), z.replay)
+    times = step_times(pair, lambda t: t.step(x, yy), "{} Trainer.step".format(z.name), BATCH)
+    peak = {which: peak_mb(t, x, yy) for which, t in zip(("captured", "eager"), pair)}
     log("  a step's peak memory over the allocated before it: captured {:.1f} MB, eager "
         "{:.1f} MB; graph pool {:.1f} MB; capture {:.3f} s".format(
-            peak["captured"], peak["eager"], pool_bytes(captured._pool) / 1e6,
-            captured.capture_seconds))
-    return run, replay, dict(times=times, peak_mb=peak, pool_mb=pool_bytes(captured._pool) / 1e6,
+            peak["captured"], peak["eager"], pool, captured.capture_seconds))
+    return run, replay, dict(times=times, peak_mb=peak, pool_mb=pool,
                              capture_seconds=captured.capture_seconds)
 
 
-def phase_mnv2_shapes():
-    """Phase 16d: the depthwise forward, dx and dw at each of MobileNet-V2's
-    shapes at batch 64, fp32, device time against cuDNN (TF32 off) and the
-    bound. Returns a list of rows."""
-    log("== phase 16d: depthwise kernels at MobileNet-V2's shapes, batch {}, fp32, device ms "
-        "(calls behind a spin kernel) against cuDNN (F.conv2d(groups=C) and its backward, "
-        "TF32 off) and the bound".format(BATCH))
+def phase_zoo_shapes(z, label):
+    """Phase 16d / 18d: the depthwise forward, dx and dw at each of the
+    model's 3x3 shapes at batch 64, fp32, device time against cuDNN (TF32
+    off) and the bound; then its 5x5 layers under cuDNN, forward and
+    backward, for the record. Returns a list of rows and the totals."""
+    log("== phase {}: depthwise kernels at {}'s shapes, batch {}, fp32, device ms (calls "
+        "behind a spin kernel) against cuDNN (F.conv2d(groups=C) and its backward, TF32 off) "
+        "and the bound".format(label, z.name, BATCH))
     log("card:", card_line())
     require(not torch.backends.cudnn.allow_tf32, "cuDNN's yardstick would run in TF32")
     rows, totals = [], {}
-    for i, (H, C, stride, n) in enumerate(MNV2_DW):
-        x, w = dw_inputs(BATCH, H, C, torch.float32, seed=1600 + i)
-        g = grad_input(BATCH, H, C, stride, torch.float32, seed=1700 + i)
+    seed = 100 * int(label[:2])
+    for i, (H, C, stride, n) in enumerate(z.dw):
+        x, w = dw_inputs(BATCH, H, C, torch.float32, seed=seed + i)
+        g = grad_input(BATCH, H, C, stride, torch.float32, seed=seed + 100 + i)
         xc, wc = x.permute(0, 3, 1, 2), w.unsqueeze(1)
         calls = {
             "fwd": lambda: depthwise3x3(x, w, stride),
@@ -3076,8 +3148,8 @@ def phase_mnv2_shapes():
         log("    vs the plain versions, the largest share of the limit: {}".format(
             {k: round(v, 4) for k, v in errs.items()}))
         require(all(v <= 1.0 for v in errs.values()),
-                "a depthwise kernel disagrees with its plain version at MobileNet-V2's "
-                "{}x{}x{} s{}".format(H, H, C, stride))
+                "a depthwise kernel disagrees with its plain version at {}'s {}x{}x{} s{}".format(
+                    z.name, H, H, C, stride))
         bound, by = dw_bound_ms(BATCH, H, C, stride)
         dw_bound, dw_by = dw_bound_ms(BATCH, H, C, stride, 9 * C * 4)
         row = dict(N=BATCH, H=H, C=C, stride=stride, layers=n, bound_ms=bound, bound_by=by,
@@ -3090,27 +3162,76 @@ def phase_mnv2_shapes():
             "{:.4f} ms; bound {:.4f} ({}), dw {:.4f}; loses to cuDNN: {}".format(
                 H, H, C, stride, n, ms["fwd"], ms["fwd_cudnn"], ms["dx"], ms["dx_cudnn"],
                 ms["dw"], ms["dw_cudnn"], bound, by, dw_bound, row["loses_to_cudnn"] or "none"))
-    bound = sum(n * dw_bound_ms(BATCH, H, C, s)[0] for H, C, s, n in MNV2_DW)
-    dw_bound = sum(n * dw_bound_ms(BATCH, H, C, s, 9 * C * 4)[0] for H, C, s, n in MNV2_DW)
-    log("  over the 17 layers: {}; bound {:.4f} ms (dw {:.4f}): forward {:.1%}, dx {:.1%}, dw "
-        "{:.1%} of it".format({k: round(v, 4) for k, v in totals.items()}, bound, dw_bound,
-                               bound / totals["fwd"], bound / totals["dx"],
-                               dw_bound / totals["dw"]))
-    return rows, dict(totals, bound_ms=bound, dw_bound_ms=dw_bound)
+    bound = sum(n * dw_bound_ms(BATCH, H, C, s)[0] for H, C, s, n in z.dw)
+    dw_bound = sum(n * dw_bound_ms(BATCH, H, C, s, 9 * C * 4)[0] for H, C, s, n in z.dw)
+    lost = sum(len(r["loses_to_cudnn"]) * r["layers"] for r in rows)
+    log("  over the {} layers: {}; bound {:.4f} ms (dw {:.4f}): forward {:.1%}, dx {:.1%}, dw "
+        "{:.1%} of it; (kernel, layer) pairs that lose to cuDNN: {} of {}".format(
+            z.dw_layers, {k: round(v, 4) for k, v in totals.items()}, bound, dw_bound,
+            bound / totals["fwd"], bound / totals["dx"], dw_bound / totals["dw"], lost,
+            3 * z.dw_layers))
+    totals = dict(totals, bound_ms=bound, dw_bound_ms=dw_bound, losing_pairs=lost)
+    if z.dw5:
+        totals["dw5"] = conv5_times(z, seed + 200)
+    return rows, totals
 
 
-def phase_mnv2():
-    """Phase 16. Returns {run: {kernel: launches}}, the replay's kernels and
-    the numbers."""
-    serve_launches, serving = phase_mnv2_serving()
-    step_launches, train = phase_mnv2_train()
-    run, replay, captured = phase_mnv2_captured()
-    rows, totals = phase_mnv2_shapes()
+def conv5_times(z, seed):
+    """The 5x5 depthwise layers under cuDNN (F.conv2d(groups=C), padding 2,
+    and its backward for dx and dw together), device ms, for the record."""
+    rows, total = [], {"fwd": 0.0, "bwd": 0.0}
+    for i, (H, C, stride, n) in enumerate(z.dw5):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + i)
+        x = torch.randn(BATCH, H, H, C, generator=gen, device=DEVICE)
+        w = torch.randn(C, 5, 5, generator=gen, device=DEVICE)
+        g = grad_input(BATCH, H, C, stride, torch.float32, seed=seed + 50 + i)
+        xc, wc = x.permute(0, 3, 1, 2), w.unsqueeze(1)
+        with torch.inference_mode():
+            ms = {"fwd": device_ms([lambda: F.conv2d(xc, wc, stride=stride, padding=2,
+                                                     groups=C)]),
+                  "bwd": device_ms([lambda: cudnn_grad(g, x, w, stride, [True, True, False],
+                                                       padding=2)])}
+        rows.append(dict(H=H, C=C, stride=stride, layers=n, **ms))
+        for k in total:
+            total[k] += n * ms[k]
+    log("  the {} 5x5 layers under cuDNN: {}; forward {:.4f} ms, backward (dx and dw) {:.4f} "
+        "ms over the layers".format(sum(n for *_, n in z.dw5),
+                                    [(r["H"], r["C"], r["stride"], round(r["fwd"], 4),
+                                      round(r["bwd"], 4)) for r in rows],
+                                    total["fwd"], total["bwd"]))
+    return dict(rows=rows, **total)
+
+
+def phase_zoo(z, phase):
+    """Phase 16 / 18a-18d. Returns {run: {kernel: launches}}, the replay's
+    kernels and the numbers."""
+    serve_launches, serving = phase_zoo_serving(z, phase + "a")
+    step_launches, train = phase_zoo_train(z, phase + "b")
+    run, replay, captured = phase_zoo_captured(z, phase + "c")
+    rows, totals = phase_zoo_shapes(z, phase + "d")
+    torch.cuda.empty_cache()
     launches = dict(serving_unfolded=serve_launches["unfolded"],
                     serving_folded=serve_launches["folded"], eager_step=step_launches,
                     captured_run=run)
     return launches, replay, dict(serving=serving, train=train, captured=captured,
                                   shapes=rows, shape_totals=totals)
+
+
+def phase_deep_zoo():
+    """Phase 18e: EfficientNet-Lite0 and ResNet-50 served BN-folded, one
+    eager step and the captured step's time each. Returns {run: {kernel:
+    launches}} and the numbers."""
+    launches, numbers = {}, {}
+    for z in (LITE0, RESNET50):
+        tag = z.tag
+        serve, serving = phase_zoo_serving(z, "18e", runs=("folded",), timed=False)
+        step, train = phase_zoo_train(z, "18e", twin=False)
+        run, _, captured = phase_zoo_captured(z, "18e", full=False)
+        torch.cuda.empty_cache()
+        launches.update({tag + "_serving_folded": serve["folded"], tag + "_eager_step": step,
+                         tag + "_captured_run": run})
+        numbers[tag] = dict(serving=serving, train=train, captured=captured)
+    return launches, numbers
 
 
 def write_mnist(path, n_train=2000, n_test=1000):
@@ -3191,8 +3312,12 @@ def main():
         p14_launches, p14_gemm, p14 = phase_14(tmp, os.path.join(tmp, "packed"), captured_img_s)
         p15_launches, p15 = phase_cam(net_cpu, net_gpu, tmp)
         del net_cpu, net_gpu
-        p16_launches, p16_replay, p16 = phase_mnv2()
+        p16_launches, p16_replay, p16 = phase_zoo(MNV2, "16")
         p17_launches, p17 = phase_mnist(tmp)
+    p18_launches, p18_replay, p18 = phase_zoo(V3L, "18")
+    p18e_launches, p18e = phase_deep_zoo()
+    p18_launches.update(p18e_launches)
+    p18["deep_zoo"] = p18e
 
     bound_ms, bound_by = flagship_bound_ms()
     dw_bound, dw_by = flagship_bound_ms(lambda C: 9 * C * 4)
@@ -3236,7 +3361,8 @@ def main():
     log(json.dumps({"phase15": p15}))
     log(json.dumps({"phase16": p16}))
     log(json.dumps({"phase17": p17}))
-    replay_names = dict(zip((k.__name__ for k in TRAIN_KERNELS), (n for n, _ in MNV2_REPLAY)))
+    log(json.dumps({"phase18": p18}))
+    replay_names = dict(zip((k.__name__ for k in TRAIN_KERNELS), (n for n, _ in MNV2.replay)))
     kernels = [
         dict(name="depthwise3x3", route="cuda",
              source="dorknet_tpu_torch/csrc/depthwise3x3.cu",
@@ -3287,15 +3413,18 @@ def main():
              phase14_launches=p14_gemm[1], **mm_stats),
     ]
     for entry in kernels:
-        # launches in each run of phases 15-17 (counts set to 0 just before
-        # each, read just after), and in one replay of phase 16's captured step
+        # launches in each run of phases 15-18 (counts set to 0 just before
+        # each, read just after), and in one replay of phase 16's and phase
+        # 18's captured steps
         name = entry["name"]
         entry["phase15_launches"] = {run: counts[name] for run, counts in p15_launches.items()}
-        entry["phase16_launches"] = {run: counts[name] for run, counts in p16_launches.items()}
-        if name in replay_names:
-            entry["phase16_launches"]["captured_replay"] = p16_replay[replay_names[name]]
-        elif name in ("matmul", "matmul_bn_stats"):  # the three GEMM kernels, by name
-            entry["phase16_launches"]["captured_replay"] = sum(p16_replay[n] for n in GEMM_KERNELS)
+        for key, runs, replay in (("phase16_launches", p16_launches, p16_replay),
+                                  ("phase18_launches", p18_launches, p18_replay)):
+            entry[key] = {run: counts[name] for run, counts in runs.items()}
+            if name in replay_names:
+                entry[key]["captured_replay"] = replay[replay_names[name]]
+            elif name in ("matmul", "matmul_bn_stats"):  # the three GEMM kernels, by name
+                entry[key]["captured_replay"] = sum(replay[n] for n in GEMM_KERNELS)
         entry["phase17_launches"] = p17_launches[name]
     log(json.dumps({"kernels": kernels}))
     log("card:", card_line())

@@ -79,7 +79,15 @@ def _finish(cam, out_size):
 
 def _project(dense_w, scores, feats, top_k):
     """CAM's maps (N, K, h, w): the classifier's rows for each image's top
-    classes dotted with its NHWC features."""
+    classes dotted with its NHWC features. The classifier's rows must lie
+    over the tap's channels: behind a two-stage head (MobileNet-V3's GAP,
+    dense, hard-swish, dense) they lie over the hidden units, and CAM
+    raises, as the JAX package's einsum does; Grad-CAM serves there."""
+    if dense_w.shape[0] != feats.shape[-1]:
+        raise ValueError(
+            "CAM projects the classifier's {} input rows onto the tap's {} channels; they "
+            "differ (a head with more than one dense layer?): use Grad-CAM".format(
+                dense_w.shape[0], feats.shape[-1]))
     top = _top_k(scores, top_k)
     w_sel = dense_w.t()[top]  # (N, K, C)
     return torch.einsum("nkc,nhwc->nkhw", w_sel.float(), feats.float())

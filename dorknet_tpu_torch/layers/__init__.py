@@ -7,7 +7,9 @@ from dorknet_tpu_torch.layers.depthwise_convolution import DepthwiseConvLayer
 from dorknet_tpu_torch.layers.pointwise_convolution import PointwiseConvLayer
 from dorknet_tpu_torch.layers.dense_layer import DenseLayer
 from dorknet_tpu_torch.layers.batch_norm import BatchNormLayer
-from dorknet_tpu_torch.layers.activations import ReLu, ReLu6, IdentityLayer
+from dorknet_tpu_torch.layers.activations import (HardSigmoid, HardSwish, IdentityLayer, ReLu,
+                                                  ReLu6)
+from dorknet_tpu_torch.layers.squeeze_excite import SqueezeExciteLayer
 from dorknet_tpu_torch.layers.pooling import GlobalAveragePoolingLayer, MaxPoolLayer
 from dorknet_tpu_torch.layers.reshape import ReshapeLayer
 from dorknet_tpu_torch.layers.residual_block import ResidualBlock
@@ -23,6 +25,9 @@ __all__ = [
     "ReLu",
     "ReLu6",
     "IdentityLayer",
+    "HardSwish",
+    "HardSigmoid",
+    "SqueezeExciteLayer",
     "GlobalAveragePoolingLayer",
     "MaxPoolLayer",
     "ReshapeLayer",

@@ -24,8 +24,7 @@ def _make_divisible(v, divisor=8):
 
 def add_inverted_residual(net, name, in_ch, out_ch, stride, expansion, kernel=3, reg=0.0001):
     """Append one linear-bottleneck MBConv block to ``net`` (shared with
-    EfficientNet-Lite in the JAX package, whose 5x5 stages take
-    ``F.conv2d(groups=C)``)."""
+    EfficientNet-Lite, whose 5x5 stages take ``F.conv2d(groups=C)``)."""
     hidden = in_ch * expansion
     layer_list = []
     if expansion != 1:

@@ -5,13 +5,18 @@ on He-normal weights with arbitrary BN statistics grows about threefold per
 residual block; either way a top-1 or parity check on the output means
 little. ``seed_serving_weights`` draws, from one numpy seed:
 
-- He-normal weights (std sqrt(2/fan_in)) and biases 0.1*N(0,1);
+- He-normal weights (std sqrt(2/fan_in)) and biases 0.1*N(0,1), the
+  squeeze-excite layers' two FCs included (fan-in C for ``w_reduce``, Cr
+  for ``w_expand``), in each layer's parameter order;
 - BN gamma 1 and beta 0.1*N(0,1);
 - BN running_mean 0.1*N(0,1) and running_std U(0.5,1.5) times the std of
   that BN's input on a seeded calibration batch, as a trained network's
   running statistics track its activations.
 
-That keeps activations of order one through the network.
+That keeps activations of order one through the network (a squeeze-excite
+gate left at its glorot init sits near 0.5 in every block of a deep
+MobileNet-V3). A network without squeeze-excite layers draws what it drew
+before they existed.
 ``gather_params()``/``gather_states()`` then carry the same values to
 another network (a CPU twin, or the JAX package's in the parity tests).
 """
@@ -21,7 +26,7 @@ import torch
 
 from dorknet_tpu_torch.layers import (BatchNormLayer, ConvLayer, DenseLayer,
                                       DepthwiseConvLayer, PointwiseConvLayer,
-                                      ResidualBlock)
+                                      ResidualBlock, SqueezeExciteLayer)
 from dorknet_tpu_torch.layers.base import copy_into, to_nhwc
 
 
@@ -73,6 +78,14 @@ def seed_serving_weights(net, seed, calib_hw):
                       layer.layer_name + "/gamma")
             copy_into(layer.beta, 0.1 * rng.randn(*layer.beta.shape),
                       layer.layer_name + "/beta")
+        elif isinstance(layer, SqueezeExciteLayer):
+            for w, b, fan_in in (("w_reduce", "b_reduce", layer.incoming_chans),
+                                 ("w_expand", "b_expand", layer.reduced_chans)):
+                p = getattr(layer, w)
+                copy_into(p, rng.randn(*p.shape) * np.sqrt(2.0 / fan_in),
+                          layer.layer_name + "/" + w)
+                p = getattr(layer, b)
+                copy_into(p, 0.1 * rng.randn(*p.shape), layer.layer_name + "/" + b)
     X = rng.randn(2, 3, *calib_hw).astype(np.float32)
     with torch.no_grad():  # not inference_mode: set_state makes the buffers here
         x = to_nhwc(torch.from_numpy(X).to(net.device()))

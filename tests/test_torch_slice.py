@@ -207,6 +207,9 @@ def test_port_imports_no_jax():
             "import dorknet_tpu_torch.data_loading.MNIST_data_loading\n"
             "import dorknet_tpu_torch.layers.reshape\n"
             "import dorknet_tpu_torch.models.mobilenet_v2, dorknet_tpu_torch.models.mnist_convnet\n"
+            "import dorknet_tpu_torch.models.mobilenet_v3, dorknet_tpu_torch.models.resnet50\n"
+            "import dorknet_tpu_torch.models.efficientnet_lite\n"
+            "import dorknet_tpu_torch.layers.squeeze_excite, dorknet_tpu_torch.utils.seeded\n"
             "bad = [m for m in ('jax', 'h5py', 'cv2', 'tqdm', 'sklearn', 'dorknet_tpu')\n"
             "       if m in sys.modules and m not in base]\n"
             "assert not bad, bad\n")
