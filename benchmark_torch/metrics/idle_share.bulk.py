@@ -1,0 +1,6 @@
+"""Percent of the traced slice in which no kernel, copy or memset ran on
+the card (``torch.profiler``'s trace)."""
+
+
+def read(rec):
+    return None if rec.slice is None else rec.slice.idle_share()
