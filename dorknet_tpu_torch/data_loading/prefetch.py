@@ -14,6 +14,12 @@ buffer, so a stream pins memory once rather than for every array of every
 batch. After a batch's copies are queued the slot records a CUDA event, and
 the slot is not written again until that event has passed: a buffer is never
 overwritten while its copy is in flight.
+
+Spans (``utils/tracing.span``, while ``torch.profiler`` records):
+``prefetch.stage`` around one batch's copy into pinned memory and its queued
+upload, and ``ring.wait`` around a ``PinnedRing`` wait that blocks (the
+slot's event is tested only while the profiler records, so an unblocked
+wait opens no range).
 """
 
 import collections
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from dorknet_tpu_torch.network.inference import resolve_device
+from dorknet_tpu_torch.utils import tracing
 
 
 def _map(fn, batch):
@@ -56,8 +63,13 @@ class PinnedRing:
 
     def wait(self, slot):
         """Block until the copies last queued through ``slot`` are done."""
-        if self._events[slot] is not None:
-            self._events[slot].synchronize()
+        event = self._events[slot]
+        if event is not None:
+            if tracing.recording() and not event.query():
+                with tracing.span("ring.wait"):
+                    event.synchronize()
+            else:
+                event.synchronize()
             self._events[slot] = None
 
     def view(self, slot, key, dtype, shape):
@@ -100,13 +112,14 @@ def device_prefetch(iterator, size=2, device="cuda", ring=None):
         return host.to(device, non_blocking=True)
 
     def stage(batch):
-        if not pinned:
-            return _map(lambda x: put(x, None, None), batch)
-        slot = ring.acquire()
-        keys = itertools.count()
-        out = _map(lambda x: put(x, slot, keys), batch)
-        ring.release(slot, device)
-        return out
+        with tracing.span("prefetch.stage"):
+            if not pinned:
+                return _map(lambda x: put(x, None, None), batch)
+            slot = ring.acquire()
+            keys = itertools.count()
+            out = _map(lambda x: put(x, slot, keys), batch)
+            ring.release(slot, device)
+            return out
 
     buf = collections.deque()
     for batch in iterator:

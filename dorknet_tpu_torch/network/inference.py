@@ -18,6 +18,13 @@ and brings each batch's probabilities back through pinned buffers while the
 next batch runs. ``export_program`` writes the test-mode forward as a
 ``torch.export`` program, which ``serving_artifact.load_serving_artifact``
 reloads without the model code.
+
+Spans (``utils/tracing.span``, while ``torch.profiler`` records),
+in ``predict_iter``: ``runner.forward`` around queuing one batch's forward,
+``runner.fetch`` around queuing its probabilities' copy back, and
+``runner.answer`` around waiting for and unpacking the previous batch's
+probabilities; ``device_prefetch`` adds ``prefetch.stage`` and the pinned
+rings ``ring.wait``. ``predict_probs`` opens none.
 """
 
 import copy
@@ -31,6 +38,7 @@ from dorknet_tpu_torch.layers.base import Layer
 from dorknet_tpu_torch.serving_artifact import (  # noqa: F401 (exported here too)
     ServingArtifact, describe, load_serving_artifact, load_serving_program)
 from dorknet_tpu_torch.utils.fold_bn import fold_in_place, refold
+from dorknet_tpu_torch.utils.tracing import span
 
 # predict_iter's pinned rings: device_prefetch's (two batches ahead, one more
 # slot) and the probabilities' (the batch being read back and the next)
@@ -171,15 +179,19 @@ class InferenceRunner:
             return slot, host
 
         def done(slot, host, pad, rest):
-            if slot is not None:
-                ring_out.wait(slot)
-            return (host.numpy()[:host.shape[0] - pad].copy(),) + rest
+            with span("runner.answer"):
+                if slot is not None:
+                    ring_out.wait(slot)
+                return (host.numpy()[:host.shape[0] - pad].copy(),) + rest
 
         pending = None
         for X, pad, *rest in device_prefetch(padded(), size=_PREFETCH, device=self.device,
                                              ring=ring_in):
             with torch.inference_mode():
-                slot, host = to_host(self.network._test_fn(X))
+                with span("runner.forward"):
+                    probs = self.network._test_fn(X)
+                with span("runner.fetch"):
+                    slot, host = to_host(probs)
             if pending is not None:
                 yield done(*pending)
             pending = (slot, host, pad, tuple(rest))

@@ -45,6 +45,18 @@ key raises without taking a step; nothing falls back to the eager step.
 kernels' ``.launches`` counters are bumped in Python, so a replay leaves
 them as they are.
 
+Spans (``utils/tracing.span``: ``torch.profiler`` ranges named
+``dorknet.<span>`` while a profiler records, nothing otherwise):
+``trainer.step`` around each step entry (``step``, ``step_augmented``,
+``step_augmented_indexed``, ``accumulate_step``; the ``multi_*`` loops open
+one a step), ``trainer.rows`` around the host rows' conversion and range
+check, ``trainer.key`` around the state, the signature and the graph
+lookup, ``trainer.eager`` around an eager step (adoption, warm-up,
+``cuda_graph=False``, the CPU), ``trainer.capture`` around a capture, and
+in a replay ``trainer.stage`` (the pinned ring and the input copies),
+``trainer.replay`` (``graph.replay()``) and ``trainer.outputs`` (the
+output clones).
+
 ``remat`` (True or "blocks") recomputes the forward's activations in the
 backward through ``torch.utils.checkpoint``: True the whole layer stack,
 "blocks" each ``ResidualBlock``. The recomputation leaves the batch norms'
@@ -70,6 +82,7 @@ from dorknet_tpu_torch.layers.base import to_nhwc
 from dorknet_tpu_torch.layers.batch_norm import running_stats_frozen
 from dorknet_tpu_torch.layers.residual_block import ResidualBlock
 from dorknet_tpu_torch.network.inference import resolve_device
+from dorknet_tpu_torch.utils.tracing import span
 
 
 def _stacked(steps):
@@ -129,19 +142,22 @@ class _StepGraph:
     def replay(self, args):
         """Copy ``args`` into the input buffers, replay, and return copies
         of the outputs (the next replay overwrites the buffers)."""
-        host = any(a.device.type == "cpu" for a in args)
-        if host:
-            if self._ring is None:
-                self._ring = PinnedRing(2)
-            slot = self._ring.acquire()
-        for i, (buf, a) in enumerate(zip(self.inputs, args, strict=True)):
-            if a.device.type == "cpu":
-                a = self._ring.view(slot, i, a.dtype, a.shape).copy_(a)
-            buf.copy_(a, non_blocking=True)
-        if host:
-            self._ring.release(slot, self.inputs[0].device)
-        self.graph.replay()
-        return tuple(o.clone() for o in self.outputs)
+        with span("trainer.stage"):
+            host = any(a.device.type == "cpu" for a in args)
+            if host:
+                if self._ring is None:
+                    self._ring = PinnedRing(2)
+                slot = self._ring.acquire()
+            for i, (buf, a) in enumerate(zip(self.inputs, args, strict=True)):
+                if a.device.type == "cpu":
+                    a = self._ring.view(slot, i, a.dtype, a.shape).copy_(a)
+                buf.copy_(a, non_blocking=True)
+            if host:
+                self._ring.release(slot, self.inputs[0].device)
+        with span("trainer.replay"):
+            self.graph.replay()
+        with span("trainer.outputs"):
+            return tuple(o.clone() for o in self.outputs)
 
 
 class Trainer:
@@ -216,11 +232,16 @@ class Trainer:
         tensors, on the host or on the device. A capture that fails raises
         after its warm-up, a real step, was applied; later calls with that
         key raise at once and take no step."""
-        self._prepare()
-        if not self.cuda_graph or not all(l.bn_initialized() for l in self.network.layers):
-            return body(*args)
-        key = key + self._signature() + tuple((tuple(a.shape), a.dtype) for a in args)
-        graph = self._graphs.get(key)
+        with span("trainer.key"):
+            self._prepare()
+            eager = not self.cuda_graph or not all(l.bn_initialized()
+                                                   for l in self.network.layers)
+            if not eager:
+                key = key + self._signature() + tuple((tuple(a.shape), a.dtype) for a in args)
+                graph = self._graphs.get(key)
+        if eager:
+            with span("trainer.eager"):
+                return body(*args)
         if isinstance(graph, _FailedCapture):
             raise RuntimeError("this step's capture failed on an earlier call, whose warm-up "
                                "step was applied; no step was taken ({})".format(graph.why))
@@ -231,7 +252,7 @@ class Trainer:
             self._pool = torch.cuda.graph_pool_handle()
         main = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(main)
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(self._stream), span("trainer.eager"):
             out = body(*args)  # the warm-up: a real step
         main.wait_stream(self._stream)
         try:
@@ -249,7 +270,8 @@ class Trainer:
         if generator is not None:
             graph.register_generator_state(generator)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+        with span("trainer.capture"), torch.cuda.graph(graph, pool=self._pool,
+                                                       stream=self._stream):
             outputs = body(*inputs)
         self.capture_seconds = time.perf_counter() - t0
         self.captures += 1
@@ -309,9 +331,10 @@ class Trainer:
         """One training step. X: (B,C,H,W) (or (B,H,W,C) with input_layout
         "NHWC"); y_one_hot: (B, classes), soft labels allowed. Returns (loss,
         predicted class ids) as device tensors."""
-        X = torch.as_tensor(X, dtype=torch.float32)
-        y = torch.as_tensor(y_one_hot, dtype=torch.float32)
-        return self._run(("step",), lambda X, y: self._train(*self._place(X, y)), (X, y))
+        with span("trainer.step"):
+            X = torch.as_tensor(X, dtype=torch.float32)
+            y = torch.as_tensor(y_one_hot, dtype=torch.float32)
+            return self._run(("step",), lambda X, y: self._train(*self._place(X, y)), (X, y))
 
     def accumulate_step(self, X_stack, y_stack):
         """One optimiser update from the mean gradient of K micro-batches.
@@ -328,16 +351,17 @@ class Trainer:
         forward runs). The K micro-batches then fold into those stats,
         micro-batch 0 again: the JAX package's documented double weighting
         of micro-batch 0 on a fresh network (its gradient counts once)."""
-        X_stack = torch.as_tensor(X_stack, dtype=torch.float32)
-        y_stack = torch.as_tensor(y_stack, dtype=torch.float32)
-        if len(X_stack) < 1:
-            raise ValueError("accumulate_step needs at least one micro-batch")
-        network = self.network
-        if not all(l.bn_initialized() for l in network.layers):
-            network._train_forward(self._place(X_stack[0], y_stack[0])[0])
-            network._pending_grads = None
-        (loss,) = self._run(("accumulate",), self._accumulate, (X_stack, y_stack))
-        return loss
+        with span("trainer.step"):
+            X_stack = torch.as_tensor(X_stack, dtype=torch.float32)
+            y_stack = torch.as_tensor(y_stack, dtype=torch.float32)
+            if len(X_stack) < 1:
+                raise ValueError("accumulate_step needs at least one micro-batch")
+            network = self.network
+            if not all(l.bn_initialized() for l in network.layers):
+                network._train_forward(self._place(X_stack[0], y_stack[0])[0])
+                network._pending_grads = None
+            (loss,) = self._run(("accumulate",), self._accumulate, (X_stack, y_stack))
+            return loss
 
     def _accumulate(self, X_stack, y_stack):
         K = len(X_stack)
@@ -376,14 +400,15 @@ class Trainer:
         aug = (_frozen(hsv_pert_tuples), _frozen(rotation_tuple), horizontal_flip_prob,
                crop_mode, _frozen(mixup))
         out_hw = tuple(out_hw)
-        X = torch.as_tensor(X_precrop)
-        y = torch.as_tensor(one_hot, dtype=torch.float32)
 
         def body(X, y):
             return self._augmented(generator, X.to(self.device), y.to(self.device), out_hw,
                                    aug)
 
-        return self._run(("aug", out_hw, aug, generator), body, (X, y), generator)
+        with span("trainer.step"):
+            X = torch.as_tensor(X_precrop)
+            y = torch.as_tensor(one_hot, dtype=torch.float32)
+            return self._run(("aug", out_hw, aug, generator), body, (X, y), generator)
 
     def step_augmented_indexed(self, generator, images, labels, rows, out_hw, num_classes,
                                hsv_pert_tuples=None, rotation_tuple=None,
@@ -397,27 +422,29 @@ class Trainer:
         length before they reach the card; rows already on the card are
         trusted, since checking them would wait on the card every step, and
         an out-of-range one there is a device-side assert."""
-        if not isinstance(rows, torch.Tensor) or rows.device.type == "cpu":
-            rows = torch.as_tensor(np.asarray(rows), dtype=torch.int64)
-            if rows.numel() and (rows.min() < 0 or rows.max() >= len(images)):
-                raise IndexError("rows must lie in [0, {}), got {}..{}".format(
-                    len(images), int(rows.min()), int(rows.max())))
-        rows = torch.as_tensor(rows, dtype=torch.int64)
-        aug = (_frozen(hsv_pert_tuples), _frozen(rotation_tuple), horizontal_flip_prob,
-               crop_mode, _frozen(mixup))
-        out_hw, num_classes = tuple(out_hw), int(num_classes)
+        with span("trainer.step"):
+            if not isinstance(rows, torch.Tensor) or rows.device.type == "cpu":
+                with span("trainer.rows"):
+                    rows = torch.as_tensor(np.asarray(rows), dtype=torch.int64)
+                    if rows.numel() and (rows.min() < 0 or rows.max() >= len(images)):
+                        raise IndexError("rows must lie in [0, {}), got {}..{}".format(
+                            len(images), int(rows.min()), int(rows.max())))
+            rows = torch.as_tensor(rows, dtype=torch.int64)
+            aug = (_frozen(hsv_pert_tuples), _frozen(rotation_tuple), horizontal_flip_prob,
+                   crop_mode, _frozen(mixup))
+            out_hw, num_classes = tuple(out_hw), int(num_classes)
 
-        def body(rows):
-            rows = rows.to(self.device, non_blocking=True)
-            X = images.index_select(0, rows)
-            y = F.one_hot(labels.index_select(0, rows).long(), num_classes).float()
-            return self._augmented(generator, X, y, out_hw, aug)
+            def body(rows):
+                rows = rows.to(self.device, non_blocking=True)
+                X = images.index_select(0, rows)
+                y = F.one_hot(labels.index_select(0, rows).long(), num_classes).float()
+                return self._augmented(generator, X, y, out_hw, aug)
 
-        # the graph reads the dataset where it lies: its identity is in the
-        # key, and the graph keeps it alive
-        key = ("aug-idx", out_hw, aug, num_classes, generator, id(images), id(labels),
-               tuple(images.shape), images.dtype, tuple(labels.shape), labels.dtype)
-        return self._run(key, body, (rows,), generator, keep=(images, labels))
+            # the graph reads the dataset where it lies: its identity is in the
+            # key, and the graph keeps it alive
+            key = ("aug-idx", out_hw, aug, num_classes, generator, id(images), id(labels),
+                   tuple(images.shape), images.dtype, tuple(labels.shape), labels.dtype)
+            return self._run(key, body, (rows,), generator, keep=(images, labels))
 
     def multi_step_augmented(self, generator, X_stack, y_stack, out_hw, **aug):
         """K augmented steps, one after another, drawing from ``generator`` in

@@ -941,3 +941,39 @@ def test_a_capture_that_fails_raises(cuda):
     for p, q in zip(graphed.network.parameters(), after_warm_up, strict=True):
         assert torch.equal(p, q)
     assert graphed.captures == 0
+
+
+def test_captured_step_opens_its_spans(cuda):
+    """The profiler ranges of the captured path (``utils/tracing.span``),
+    all on the host: the adopting step and the warm-up under
+    ``trainer.eager``, the capture under ``trainer.capture``, and each
+    replay's ``trainer.stage``, ``trainer.replay`` and ``trainer.outputs``,
+    in that order, inside its ``trainer.step``; a pinned slot whose copy
+    waits behind a spin kernel opens ``ring.wait``."""
+    from dorknet_tpu_torch.data_loading.prefetch import PinnedRing
+
+    graphed, _ = _graph_pair(cuda)
+    X, y = _graph_batches(82, 4)
+    ring = PinnedRing(1)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for k in range(4):  # host arrays: a replay stages them through its pinned ring
+            graphed.step(X[k], y[k])
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
+        ring.release(0, cuda)
+        ring.acquire()
+    events = [e for e in prof.profiler.kineto_results.events() if e.name().startswith("dorknet.")]
+    # host ranges only: none is copied onto the card's timeline
+    assert all(e.device_type() == torch.autograd.DeviceType.CPU for e in events)
+    ranges = sorted(((e.name()[len("dorknet."):], e.start_ns(), e.end_ns()) for e in events),
+                    key=lambda r: r[1])
+    names = [n for n, _, _ in ranges]
+    assert names.count("trainer.step") == 4 and names.count("trainer.key") == 4
+    assert names.count("trainer.eager") == 2 and names.count("trainer.capture") == 1
+    steps = [r for r in ranges if r[0] == "trainer.step"]
+    for step in steps[2:]:
+        inside = [n for n, s, f in ranges if step[1] <= s and f <= step[2] and n != "trainer.step"]
+        assert [n for n in inside if n != "ring.wait"] == [
+            "trainer.key", "trainer.stage", "trainer.replay", "trainer.outputs"]
+    assert names[-1] == "ring.wait" and graphed.captures == 1
