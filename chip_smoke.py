@@ -205,7 +205,18 @@ Phases (each checks its results; any failure ends the run non-zero with no
     kernels a class of their own in the served profile); 18e
     EfficientNet-Lite0 and ResNet-50 served BN-folded (7 and 0 depthwise
     launches a dispatch; probs within 1e-4 of the CPU forward), one eager
-    step each (7/7/7/49 and 0/0/0/49) and the captured step's time.
+    step each (7/7/7/49 and 0/0/0/49) and the captured step's time;
+19. the train-mode batch norm's kernels after its statistics (``bn_apply``,
+    ``bn_bwd_reduce``, ``bn_bwd_dx``, ``csrc/bn_train.cu``) at the batch
+    norms of the benchmark's two training cells (the flagship at 120
+    images, MobileNet-V3-Large at 128), each distinct shape in fp32 and
+    bf16: y, (mean, inv) and dx bit-equal to the plain versions, dbeta and
+    dgamma within 2e-5 of their terms' magnitudes of fp64 sums, two runs
+    bit-equal; device ms of each kernel alone over every layer of the step
+    against the bound of its activation passes, and of the three together
+    against the eager ops they replace, in turns; each wrapper's launches in
+    an eager step and each kernel's in one replay of the captured step, by
+    name (once a batch norm: 34 and 46).
 
 The line before the last is a JSON object of the kernels of the paths (with
 each kernel's launches by route, and both routes' times, device times
@@ -214,7 +225,8 @@ folded served run and in the reloaded programs' runs; every entry its
 launches in one replay of each captured step, by name in the profile, and
 the training kernels their wrapper launches over phase 13b's driven
 steps, and every entry its launches in each run of phases 14-18 and in one
-replay of phase 16's and phase 18's captured steps); JSON objects of phase
+replay of phase 16's and phase 18's captured steps; phase 19's kernels their
+own numbers by cell); JSON objects of phase
 13b's and phases 14-18's numbers come before it; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
@@ -255,7 +267,10 @@ from dorknet_tpu_torch.ops.cuda.augment import (
     BAND_COLS, BAND_ROWS, _geometry, augment_param_table, augment_planes_fused,
     augment_planes_fused_plain, launch_augment_kernel)
 from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats, batch_norm_stats_plain
+from dorknet_tpu_torch.ops.cuda.bn_train import (bn_apply, bn_apply_plain, bn_bwd_dx,
+                                                 bn_bwd_dx_plain, bn_bwd_reduce)
 import dorknet_tpu_torch.ops.cuda.depthwise as dw_mod
+import dorknet_tpu_torch.ops.norm as norm_mod
 from dorknet_tpu_torch.ops.cuda.build import load_library
 from dorknet_tpu_torch.ops.cuda.depthwise import (
     _dw_route, _dwgrad_route, _dx_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain,
@@ -3273,6 +3288,209 @@ def phase_mnist(tmp):
                                                                        "train_img_s")})
 
 
+# ---- phase 19: the train-mode batch norm's normalise and backward ----------
+BN_EPS = 1e-5
+BN_TRAIN = (bn_apply, bn_bwd_reduce, bn_bwd_dx)
+# activation-sized reads and writes of each kernel: x, y; dy, x; dy, x, dx
+BN_PASSES = dict(bn_apply=2, bn_bwd_reduce=2, bn_bwd_dx=3)
+BN_SUM_RTOL = 2e-5  # of the sum of the terms' magnitudes, for dbeta and dgamma
+# kernels by name in one replay, each once a train-mode batch norm
+BN_REPLAY = ("bn_stats_partial_kernel", "bn_apply_kernel", "bn_bwd_reduce_kernel",
+             "bn_bwd_finish_kernel", "bn_bwd_dx_kernel")
+
+
+def bn_shapes(make, image):
+    """{shape without the batch axis: how many} of a model's train-mode
+    batch-norm inputs, from one train-mode forward of one image on the CPU."""
+    seen = []
+    stats = norm_mod.batch_norm_stats
+
+    def recording(x):
+        seen.append(tuple(x.shape[1:]))
+        return stats(x)
+
+    net = make()
+    x = torch.from_numpy(np.random.RandomState(2).randn(1, *image[1:], image[0])
+                         .astype(np.float32))
+    norm_mod.batch_norm_stats = recording
+    try:
+        with torch.no_grad():
+            net._train_forward(x)
+    finally:
+        norm_mod.batch_norm_stats = stats
+    out = {}
+    for shape in seen:
+        out[shape] = out.get(shape, 0) + 1
+    return out
+
+
+def eager_bn_tail(x, mean, var, gamma, beta, gy):
+    """The eager ops the three kernels replace: the port's ``_BNCore`` after
+    its statistics, forward and backward, as it was before them."""
+    inv = torch.rsqrt(var + BN_EPS)
+    x_hat = (x.float() - mean) * inv
+    y = (gamma * x_hat + beta).to(x.dtype)
+    saved = x_hat.to(x.dtype)
+    dims = tuple(range(gy.dim() - 1))
+    n = gy.numel() // gy.shape[-1]
+    gyf, xh = gy.float(), saved.float()
+    dbeta = gyf.sum(dim=dims)
+    dgamma = (gyf * xh).sum(dim=dims)
+    dx = (gamma * inv) * (gyf - dbeta / n - xh * (dgamma / n))
+    return y, dx.to(gy.dtype), dgamma, dbeta
+
+
+def bn_train_inputs(shape, dtype, seed):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = (torch.randn(*shape, generator=g, device=DEVICE) * 1.5 + 0.25).to(dtype)
+    gy = torch.randn(*shape, generator=g, device=DEVICE).to(dtype)
+    C = shape[-1]
+    gamma = 1.0 + 0.1 * torch.randn(C, generator=g, device=DEVICE)
+    beta = 0.1 * torch.randn(C, generator=g, device=DEVICE)
+    mean, var = batch_norm_stats(x)
+    return x, gy, mean, var, gamma, beta
+
+
+def bn_train_check(shape, dtype, seed):
+    """The three kernels at one shape against their plain versions: y,
+    (mean, inv) and dx (from the kernel's factors) bit-equal; dbeta and
+    dgamma within BN_SUM_RTOL of fp64 sums of the same terms; two runs
+    bit-equal. Returns the sums' worst share of their limit."""
+    x, gy, mean, var, gamma, beta = bn_train_inputs(shape, dtype, seed)
+    (y, norm), (y2, norm2) = (bn_apply(x, mean, var, gamma, beta, BN_EPS) for _ in range(2))
+    y_ref, norm_ref = bn_apply_plain(x, mean, var, gamma, beta, BN_EPS)
+    (dgamma, dbeta, coef), again = (bn_bwd_reduce(gy, x, norm, gamma) for _ in range(2))
+    dx, dx2 = (bn_bwd_dx(gy, x, norm, coef) for _ in range(2))
+    same = (torch.equal(y, y_ref) and torch.equal(norm, norm_ref)
+            and torch.equal(dx, bn_bwd_dx_plain(gy, x, norm, coef)))
+    repeat = (torch.equal(y, y2) and torch.equal(norm, norm2) and torch.equal(dx, dx2)
+              and all(torch.equal(a, b) for a, b in zip((dgamma, dbeta, coef), again)))
+    C = shape[-1]
+    g64 = gy.double().reshape(-1, C)
+    t64 = g64 * ((x.float() - norm[0]) * norm[1]).to(dtype).double().reshape(-1, C)
+    share = max(float(((dbeta.double() - g64.sum(0)).abs()
+                       / (BN_SUM_RTOL * g64.abs().sum(0) + 1e-30)).max()),
+                float(((dgamma.double() - t64.sum(0)).abs()
+                       / (BN_SUM_RTOL * t64.abs().sum(0) + 1e-30)).max()))
+    count = torch.full_like(dbeta, float(g64.shape[0]))
+    factors = torch.equal(coef, torch.stack([gamma * norm[1], dbeta / count, dgamma / count]))
+    torch.cuda.synchronize()
+    require(same and factors, "{} {}: a batch-norm kernel disagrees with its plain "
+            "version".format(shape, dtype))
+    require(repeat, "{} {}: two batch-norm kernel runs differ".format(shape, dtype))
+    require(share <= 1.0, "{} {}: bn_bwd_reduce's sums are off".format(shape, dtype))
+    return share
+
+
+def bn_train_times(cell, shapes, batch):
+    """Device ms of the cell's batch norms at its trained batch in fp32, one
+    input a layer: each kernel alone over every layer, the three together
+    and the eager ops they replace (in turns: eager, kernels, kernels,
+    eager), against the bound of their activation passes at 3.35 TB/s."""
+    layers, elems = [], 0
+    for i, (shape, n) in enumerate(shapes.items()):
+        for j in range(n):
+            layers.append(bn_train_inputs((batch,) + shape, torch.float32, 1900 + 50 * i + j))
+            elems += layers[-1][0].numel()
+    saved = [bn_apply(x, mean, var, gamma, beta, BN_EPS)[1] for x, _, mean, var, gamma, beta
+             in layers]
+    coefs = [bn_bwd_reduce(gy, x, norm, gamma)[2]
+             for (x, gy, _, _, gamma, _), norm in zip(layers, saved)]
+    alone = dict(
+        bn_apply=[lambda a=a: bn_apply(a[0], a[2], a[3], a[4], a[5], BN_EPS) for a in layers],
+        bn_bwd_reduce=[lambda a=a, s=s: bn_bwd_reduce(a[1], a[0], s, a[4])
+                       for a, s in zip(layers, saved)],
+        bn_bwd_dx=[lambda a=a, s=s, c=c: bn_bwd_dx(a[1], a[0], s, c)
+                   for a, s, c in zip(layers, saved, coefs)])
+
+    def kernels(a):
+        y, norm = bn_apply(a[0], a[2], a[3], a[4], a[5], BN_EPS)
+        _, _, coef = bn_bwd_reduce(a[1], a[0], norm, a[4])
+        return y, bn_bwd_dx(a[1], a[0], norm, coef)
+
+    tails = dict(kernels=[lambda a=a: kernels(a) for a in layers],
+                 eager=[lambda a=a: eager_bn_tail(a[0], a[2], a[3], a[4], a[5], a[1])
+                        for a in layers])
+    ms = {k: device_ms(calls, inner=1) for k, calls in alone.items()}
+    turns = [device_ms(tails[k], inner=1) for k in ("eager", "kernels", "kernels", "eager")]
+    pass_ms = elems * 4 / HBM_BYTES_PER_S * 1e3
+    out = dict(layers=len(layers), gb_a_pass=elems * 4 / 1e9,
+               eager_device_ms=[turns[0], turns[3]], device_ms=[turns[1], turns[2]],
+               bound_ms=7 * pass_ms)
+    for k, t in ms.items():
+        out[k] = dict(device_ms=t, bound_ms=BN_PASSES[k] * pass_ms,
+                      share=BN_PASSES[k] * pass_ms / t)
+        log("  {}: {} alone over the {} batch norms {:.4f} ms, bound {:.4f} ms ({} passes of "
+            "{:.3f} GB at 3.35 TB/s): {:.1%}".format(cell, k, len(layers), t,
+                                                      BN_PASSES[k] * pass_ms, BN_PASSES[k],
+                                                      out["gb_a_pass"], out[k]["share"]))
+    log("  {}: the three kernels together {:.4f} / {:.4f} ms ({:.1%} of the 7-pass bound "
+        "{:.4f} ms); the eager ops they replace {:.4f} / {:.4f} ms (in turns: eager, kernels, "
+        "kernels, eager)".format(cell, turns[1], turns[2], out["bound_ms"] / min(turns[1:3]),
+                                 out["bound_ms"], turns[0], turns[3]))
+    del layers, saved, coefs, alone, tails
+    torch.cuda.empty_cache()
+    return out
+
+
+def bn_train_launches(make, classes, bns):
+    """An eager Trainer.step of 2 images of 64 px: each wrapper's launches;
+    then one replay of the captured step: the kernels by name."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 3, 64, 64).astype(np.float32)).to(DEVICE)
+    y = torch.from_numpy(np.eye(classes, dtype=np.float32)[[1, 2]]).to(DEVICE)
+    net = make()
+    eager = Trainer(net, SGDMomentum(net, 0.01, 0.9), device=DEVICE, cuda_graph=False)
+    eager.step(x, y)  # adoption
+    torch.cuda.synchronize()
+    reset_launches(BN_TRAIN)
+    eager.step(x, y)
+    torch.cuda.synchronize()
+    step = {k.__name__: k.launches for k in BN_TRAIN}
+    net = make()
+    captured = Trainer(net, SGDMomentum(net, 0.01, 0.9), device=DEVICE)
+    for _ in range(3):  # adoption, warm-up and capture, a replay
+        captured.step(x, y)
+    replay, _, _, _ = replay_profile(lambda: captured.step(x, y), BN_REPLAY)
+    require(step == dict.fromkeys(step, bns) and replay == dict.fromkeys(BN_REPLAY, bns)
+            and captured.captures == 1, "a batch norm missed a kernel")
+    return step, replay
+
+
+def phase_bn_train():
+    """Phase 19. Returns the kernels' entries of the kernels line."""
+    log("== phase 19: train-mode batch norm after its statistics: bn_apply, bn_bwd_reduce, "
+        "bn_bwd_dx at the benchmark cells' shapes")
+    log("card:", card_line())
+    cells = (("resnet18dw", fresh_resnet18, IMAGE, 2 * AUG_BATCH, NUM_CLASSES),
+             ("mnv3l", V3L.fresh, V3L.image, 128, V3L.classes))
+    entries = {k.__name__: dict(name=k.__name__, route="cuda",
+                                source="dorknet_tpu_torch/csrc/bn_train.cu", replaces=None)
+               for k in BN_TRAIN}
+    for cell, make, image, batch, classes in cells:
+        shapes = bn_shapes(make, image)
+        bns = sum(shapes.values())
+        worst = 0.0
+        for i, shape in enumerate(shapes):
+            for dtype in (torch.float32, torch.bfloat16):
+                worst = max(worst, bn_train_check((batch,) + shape, dtype, 1800 + i))
+        log("  {}: {} batch norms, {} shapes at batch {}, fp32 and bf16: y, (mean, inv) and "
+            "dx bit-equal to the plain versions, two runs bit-equal, the sums at most {:.3f} "
+            "of their limit".format(cell, bns, len(shapes), batch, worst))
+        torch.cuda.empty_cache()
+        times = bn_train_times(cell, shapes, batch)
+        step, replay = bn_train_launches(make, classes, bns)
+        log("  {}: launches of an eager step {}; one replay's kernels {}".format(
+            cell, step, replay))
+        for name, entry in entries.items():
+            entry[cell] = dict(launches=step[name], captured_replay=replay[name + "_kernel"],
+                               sums_of_limit=worst, **times[name])
+        entries["bn_apply"][cell].update(  # the three together, and what they replaced
+            tail_device_ms=times["device_ms"], tail_eager_device_ms=times["eager_device_ms"],
+            tail_bound_ms=times["bound_ms"])
+    return list(entries.values())
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a "
@@ -3318,6 +3536,7 @@ def main():
     p18e_launches, p18e = phase_deep_zoo()
     p18_launches.update(p18e_launches)
     p18["deep_zoo"] = p18e
+    bn_train = phase_bn_train()
 
     bound_ms, bound_by = flagship_bound_ms()
     dw_bound, dw_by = flagship_bound_ms(lambda C: 9 * C * 4)
@@ -3426,7 +3645,7 @@ def main():
             elif name in ("matmul", "matmul_bn_stats"):  # the three GEMM kernels, by name
                 entry[key]["captured_replay"] = sum(replay[n] for n in GEMM_KERNELS)
         entry["phase17_launches"] = p17_launches[name]
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels + bn_train}))
     log("card:", card_line())
     log("chip_smoke: {:.1f} s in all".format(time.perf_counter() - _START))
     log(json.dumps({"ok": True, "device": {

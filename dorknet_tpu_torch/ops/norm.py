@@ -11,19 +11,20 @@ package's hand-written backward: one-pass E[x²]−E[x]² statistics (clamped at
 
     dβ = Σ dy ;  dγ = Σ dy·x̂ ;  dx = γ/σ · (dy − dβ/N − x̂·dγ/N)
 
-with x̂ saved in x's dtype, as ``_bn_core_fwd`` saves it. The statistics come
-from ``batch_norm_stats`` (``ops/cuda/bn_stats.py``): on the card its
-hand-written kernel reads x once, as XLA's fusion of the same formula does in
-the JAX step; on the CPU its plain version.
+with x̂ read in x's dtype, as ``_bn_core_fwd`` saves it. The statistics come
+from ``batch_norm_stats`` (``ops/cuda/bn_stats.py``), the normalise and the
+backward from ``bn_apply``, ``bn_bwd_reduce`` and ``bn_bwd_dx``
+(``ops/cuda/bn_train.py``): on the card hand-written kernels that read and
+write each activation no more than XLA's fusion of the same formulas does in
+the JAX step (7 passes a batch norm after the statistics' read); on the CPU
+their plain versions. The forward saves x itself, not x̂: the backward
+recomputes x̂ from x with the forward's arithmetic.
 """
 
 import torch
 
 from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats
-
-
-def _reduce_dims(x):
-    return tuple(range(x.dim() - 1))
+from dorknet_tpu_torch.ops.cuda.bn_train import bn_apply, bn_bwd_dx, bn_bwd_reduce
 
 
 class _BNCore(torch.autograd.Function):
@@ -33,25 +34,18 @@ class _BNCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
         mean, var = batch_norm_stats(x)
-        inv = torch.rsqrt(var + eps)
-        x_hat = (x.float() - mean) * inv
-        y = (gamma * x_hat + beta).to(x.dtype)
+        y, norm = bn_apply(x, mean, var, gamma, beta, eps)
         std = torch.sqrt(var + eps)
-        ctx.save_for_backward(x_hat.to(x.dtype), inv, gamma)
+        ctx.save_for_backward(x, norm, gamma)
         ctx.mark_non_differentiable(mean, std)
         return y, mean, std
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gstd):
-        x_hat, inv, gamma = ctx.saved_tensors
-        dims = _reduce_dims(gy)
-        n = gy.numel() // gy.shape[-1]
-        gyf = gy.float()
-        x_hat = x_hat.float()
-        dbeta = gyf.sum(dim=dims)
-        dgamma = (gyf * x_hat).sum(dim=dims)
-        dx = (gamma * inv) * (gyf - dbeta / n - x_hat * (dgamma / n))
-        return dx.to(gy.dtype), dgamma, dbeta, None
+        x, norm, gamma = ctx.saved_tensors
+        gy = gy.contiguous()
+        dgamma, dbeta, coef = bn_bwd_reduce(gy, x, norm, gamma)
+        return bn_bwd_dx(gy, x, norm, coef), dgamma, dbeta, None
 
 
 def batch_norm_train(x, gamma, beta, running_mean, running_std, momentum=0.95,

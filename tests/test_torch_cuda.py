@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 
 from dorknet_tpu_torch.data_loading.device_augment import (  # noqa: E402
     draw_batch_params, train_pipeline)
-from dorknet_tpu_torch.models import ResNet18  # noqa: E402
+from dorknet_tpu_torch.models import MobileNetV3Large, ResNet18  # noqa: E402
 from dorknet_tpu_torch.network import Trainer  # noqa: E402
 from dorknet_tpu_torch.ops.augment import shear_pad  # noqa: E402
 from dorknet_tpu_torch.ops.cuda.augment import (  # noqa: E402
@@ -20,6 +20,8 @@ from dorknet_tpu_torch.ops.cuda.augment import (  # noqa: E402
     launch_augment_kernel)
 from dorknet_tpu_torch.ops.cuda.bn_stats import (  # noqa: E402
     batch_norm_stats, batch_norm_stats_plain)
+from dorknet_tpu_torch.ops.cuda.bn_train import (  # noqa: E402
+    bn_apply, bn_apply_plain, bn_bwd_dx, bn_bwd_dx_plain, bn_bwd_reduce)
 from dorknet_tpu_torch.ops.cuda.depthwise import (  # noqa: E402
     _dw_route, _dwgrad_route, _dx_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain,
     depthwise3x3_dx, depthwise3x3_dx_plain, depthwise3x3_plain, launch_dw, launch_dx,
@@ -365,6 +367,105 @@ def test_bn_stats_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         batch_norm_stats(torch.zeros(4, 8, device=cuda, dtype=torch.float16))
     assert batch_norm_stats.launches == before
+
+
+# every width of MobileNet-V3-Large's batch norms, the flagship's other
+# three, an odd C (the scalar route) and ResNet-50's widest
+BN_TRAIN_WIDTHS = [16, 24, 40, 64, 72, 80, 112, 120, 160, 184, 200, 240, 480, 672, 960,
+                   128, 256, 512, 13, 2048]
+BN_SUM_RTOL = 2e-5  # of the sum of the terms' magnitudes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", BN_TRAIN_WIDTHS)
+def test_bn_train_kernels_match_plain_and_repeat(cuda, C, dtype):
+    """At 4 x 24 x 24 x C: bn_apply's y and (mean, inv) and bn_bwd_dx's dx
+    bit-equal to their plain versions (every fp32 operation rounded on its
+    own, in the same order); bn_bwd_reduce's dbeta and dgamma within
+    BN_SUM_RTOL of the terms' magnitudes of fp64 sums of the same terms,
+    and its factors formed from them as the plain version forms them; two
+    launches of each bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(C)
+    shape = (4, 24, 24, C)
+    x = (torch.randn(*shape, generator=g, device=cuda) * 1.5 + 0.25).to(dtype)
+    gy = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(C, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(C, generator=g, device=cuda)
+    mean, var = batch_norm_stats(x)
+    entries = (bn_apply, bn_bwd_reduce, bn_bwd_dx)
+    before = [k.launches for k in entries]
+    (y, norm), (y2, norm2) = (bn_apply(x, mean, var, gamma, beta, 1e-5) for _ in range(2))
+    y_ref, norm_ref = bn_apply_plain(x, mean, var, gamma, beta, 1e-5)
+    (dgamma, dbeta, coef), again = (bn_bwd_reduce(gy, x, norm, gamma) for _ in range(2))
+    dx, dx2 = (bn_bwd_dx(gy, x, norm, coef) for _ in range(2))
+    dx_ref = bn_bwd_dx_plain(gy, x, norm, coef)
+    M = x.numel() // C
+    g64 = gy.double().reshape(M, C)
+    t64 = g64 * ((x.float() - norm[0]) * norm[1]).to(dtype).double().reshape(M, C)
+    count = torch.full_like(dbeta, float(M))
+    torch.cuda.synchronize()
+    assert [k.launches for k in entries] == [b + 2 for b in before]
+    assert y.dtype == dx.dtype == dtype and norm.shape == (2, C) and coef.shape == (3, C)
+    assert torch.equal(y, y_ref) and torch.equal(norm, norm_ref) and torch.equal(dx, dx_ref)
+    assert torch.equal(y, y2) and torch.equal(norm, norm2) and torch.equal(dx, dx2)
+    assert all(torch.equal(a, b) for a, b in zip((dgamma, dbeta, coef), again, strict=True))
+    assert ((dbeta.double() - g64.sum(0)).abs() <= BN_SUM_RTOL * g64.abs().sum(0)).all()
+    assert ((dgamma.double() - t64.sum(0)).abs() <= BN_SUM_RTOL * t64.abs().sum(0)).all()
+    assert torch.equal(coef, torch.stack([gamma * norm[1], dbeta / count, dgamma / count]))
+
+
+def test_bn_train_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(4, 8, device=cuda)
+    ones = torch.ones(8, device=cuda)
+    norm2, coef = torch.zeros(2, 8, device=cuda), torch.zeros(3, 8, device=cuda)
+    before = [k.launches for k in (bn_apply, bn_bwd_reduce, bn_bwd_dx)]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        bn_apply(x.half(), ones, ones, ones, ones, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        bn_bwd_dx(x, torch.zeros(8, 4, device=cuda).t(), norm2, coef)
+    with pytest.raises(ValueError, match="gamma must be contiguous float32"):
+        bn_bwd_reduce(x, x, norm2, ones[:7])
+    with pytest.raises(ValueError, match="is on cpu"):
+        bn_apply(x, ones, ones, ones.cpu(), ones, 1e-5)
+    assert [k.launches for k in (bn_apply, bn_bwd_reduce, bn_bwd_dx)] == before
+
+
+# hand kernels of a train-mode batch norm, by name: each launched once a
+# batch norm in a training step
+BN_TRAIN_KERNELS = ("bn_stats_partial_kernel", "bn_apply_kernel", "bn_bwd_reduce_kernel",
+                    "bn_bwd_finish_kernel", "bn_bwd_dx_kernel")
+
+
+@pytest.mark.parametrize("make,classes,bns", [
+    (lambda: ResNet18("dogs", num_classes=120), 120, 34),
+    (lambda: MobileNetV3Large("mnv3l", num_classes=1000), 1000, 46),
+], ids=["resnet18dw", "mnv3l"])
+def test_captured_step_launches_the_bn_kernels_once_a_batch_norm(cuda, make, classes, bns):
+    """One replay of a captured Trainer.step (2 images of 64 px), profiled:
+    every train-mode batch norm launches batch_norm_stats, bn_apply,
+    bn_bwd_reduce (pass 1 and its finish) and bn_bwd_dx once each, by
+    kernel name."""
+    np.random.seed(0)
+    net = make()
+    trainer = Trainer(net, SGDMomentum(net, 0.01, 0.9), device=cuda)
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 3, 64, 64).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(np.eye(classes, dtype=np.float32)[[1, 2]]).to(cuda)
+    for _ in range(3):  # adoption, warm-up and capture, a replay
+        trainer.step(x, y)
+    torch.cuda.synchronize()
+    assert trainer.captures == 1
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        loss, _ = trainer.step(x, y)
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(BN_TRAIN_KERNELS, 0)
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            for name in BN_TRAIN_KERNELS:
+                counts[name] += evt.count if name in evt.key else 0
+    assert np.isfinite(float(loss)) and trainer.captures == 1
+    assert counts == dict.fromkeys(BN_TRAIN_KERNELS, bns)
 
 
 GEMM_CASES = [(64, 32, 48), (300, 512, 120), (8, 16, 128), (1, 1, 1), (129, 7, 130),

@@ -191,6 +191,7 @@ def test_port_imports_no_jax():
             "import dorknet_tpu_torch.data_loading.device_dataset\n"
             "import dorknet_tpu_torch.data_loading.prefetch\n"
             "import dorknet_tpu_torch.ops.cuda.bn_stats, dorknet_tpu_torch.ops.cuda.matmul\n"
+            "import dorknet_tpu_torch.ops.cuda.bn_train\n"
             "import dorknet_tpu_torch.utils.autotune, dorknet_tpu_torch.utils.bn_fuse_ab\n"
             "import dorknet_tpu_torch.utils.fold_bn, dorknet_tpu_torch.serving_artifact\n"
             "import dorknet_tpu_torch.examples.serving_demo\n"
