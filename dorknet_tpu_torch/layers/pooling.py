@@ -25,20 +25,39 @@ class GlobalAveragePoolingLayer(Layer):
 
 @register_layer
 class MaxPoolLayer(Layer):
-    def __init__(self, layer_name, input_shape=None, stride=2):
-        """Square, non-overlapping regions only (window size == stride);
-        ``input_shape`` is accepted and unused, as in the reference."""
+    def __init__(self, layer_name, input_shape=None, stride=2, window=None, padding=0):
+        """Square regions; ``input_shape`` is accepted and unused, as in the
+        reference. By default the window equals the stride and nothing is
+        padded (the reference's and the JAX package's only pool); ``window``
+        and ``padding`` give an overlapping, padded pool, such as the
+        canonical ResNet stem's 3x3/s2 with padding 1. Only such a pool
+        writes ``window`` and ``padding`` into its h5 attrs, so a default
+        pool's file stays the reference's; a file without them loads as
+        window = stride, padding 0."""
         super().__init__(layer_name)
         self.stride = stride
+        self.window = stride if window is None else window
+        self.padding = padding
+
+    def _default(self):
+        return self.window == self.stride and self.padding == 0
 
     def __repr__(self):
-        return "MaxPoolLayer(stride={})".format(self.stride)
+        if self._default():
+            return "MaxPoolLayer(stride={})".format(self.stride)
+        return "MaxPoolLayer(stride={}, window={}, padding={})".format(
+            self.stride, self.window, self.padding)
 
     def fapply(self, x, train=False):
-        return max_pool(x, self.stride)
+        return max_pool(x, self.stride, self.window, self.padding)
 
     def save_to_h5(self, open_f, save_grads=True):
-        h5io.create_layer_info(open_f, self.layer_name, "MaxPoolLayer", stride=self.stride)
+        extra = {} if self._default() else dict(window=self.window, padding=self.padding)
+        h5io.create_layer_info(open_f, self.layer_name, "MaxPoolLayer", stride=self.stride,
+                               **extra)
 
     def load_from_h5(self, open_f, load_grads=True):
-        self.stride = int(open_f[self.layer_name + "/layer_info"].attrs["stride"])
+        info = open_f[self.layer_name + "/layer_info"].attrs
+        self.stride = int(info["stride"])
+        self.window = int(info.get("window", self.stride))
+        self.padding = int(info.get("padding", 0))

@@ -11,6 +11,12 @@ For one-hot y the two are the textbook pair; for soft (mixup) labels they are
 not consistent, and both are reproduced: the forward through -log(p·y), the
 backward pinned to (p - y)/B by a ``torch.autograd.Function``.
 ``F.cross_entropy`` computes -Σ y log p, another value for soft labels.
+
+The port computes -log(p·y) in log space, logsumexp(z) - logsumexp(z + log y),
+which equals it in exact arithmetic and is finite where p·y underflows to 0
+in fp32 (the labelled classes' logits more than about 104 below the
+largest): there the reference and the JAX package read inf. Elsewhere the
+two forms part by a few fp32 roundings.
 """
 
 import torch
@@ -31,7 +37,8 @@ class _SoftmaxCrossEntropy(torch.autograd.Function):
         p = softmax_probs(logits)
         ctx.save_for_backward(p, y_soft)
         ctx.logits_dtype = logits.dtype
-        return torch.mean(-torch.log(torch.sum(p * y_soft, dim=1)))
+        z = logits.float()
+        return torch.mean(torch.logsumexp(z, dim=1) - torch.logsumexp(z + torch.log(y_soft), dim=1))
 
     @staticmethod
     def backward(ctx, g):

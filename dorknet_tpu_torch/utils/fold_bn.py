@@ -8,10 +8,11 @@ removes BN's passes over every activation it normalises.
 
 ``fold_batch_norms(network)`` returns a new network (the original is
 untouched) with every Conv/Depthwise/Pointwise + BatchNorm pair folded,
-pairs inside ResidualBlocks included. A BN that is not initialised, or does
-not follow a foldable conv, stays. The fold runs in fp32 with the JAX
-package's operations in its order, so the folded weights are bit-equal to
-its ``fold_batch_norms``'s. A conv built without a bias gains one, a real
+pairs inside ResidualBlocks included, and a block's skip projection with
+its ``skip_bn`` (the block loses its ``skip_bn``). A BN that is not
+initialised, or does not follow a foldable conv, stays. The fold runs in
+fp32 with the JAX package's operations in its order, so the folded weights
+are bit-equal to its ``fold_batch_norms``'s. A conv built without a bias gains one, a real
 ``nn.Parameter``.
 
 ``refold(served, source)`` writes the fold of ``source``'s current
@@ -77,6 +78,9 @@ def _fold_list(layers):
             _scale_into(l, bn)
         elif type(l).__name__ == "ResidualBlock":
             l.layer_list = nn.ModuleList(_fold_list(list(l.layer_list)))
+            if l.skip_bn is not None and l.skip_bn.bn_initialized():
+                _scale_into(l.skip_projection, l.skip_bn)
+                l.skip_bn = None
         out.append(l)
     return out
 
@@ -118,8 +122,15 @@ def _refold_list(served, source):
             dst.bias.copy_(b)
         elif type(src).__name__ == "ResidualBlock":
             _refold_list(list(dst.layer_list), list(src.layer_list))
-            for d, s in ((dst.skip_projection, src.skip_projection),
-                         (dst.post_skip_activation, src.post_skip_activation)):
+            pairs = [(dst.post_skip_activation, src.post_skip_activation)]
+            if dst.skip_bn is None and src.skip_bn is not None:  # folded
+                w, b = _folded(src.skip_projection, src.skip_bn)
+                dst.skip_projection.weights.copy_(w)
+                dst.skip_projection.bias.copy_(b)
+            else:
+                pairs += [(dst.skip_projection, src.skip_projection),
+                          (dst.skip_bn, src.skip_bn)]
+            for d, s in pairs:
                 if s is not None:
                     _copy_tensors(d, s)
         else:

@@ -50,6 +50,8 @@ def _calibrate(layer, x, rng):
         skip = x
         if layer.skip_projection is not None:
             skip = _calibrate(layer.skip_projection, x, rng)
+        if layer.skip_bn is not None:
+            skip = _calibrate(layer.skip_bn, skip, rng)
         return _calibrate(layer.post_skip_activation, h + skip, rng)
     if isinstance(layer, BatchNormLayer):
         shape = layer.gamma.shape

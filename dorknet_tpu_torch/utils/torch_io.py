@@ -156,11 +156,7 @@ def _restore_states(layer, saved):
         if saved["running_mean"] is not None:
             layer.set_state(saved)  # in place once set
     elif isinstance(layer, ResidualBlock):
-        for child, s in zip(layer.layer_list, saved["layers"], strict=True):
-            _restore_states(child, s)
-        if layer.skip_projection is not None:
-            _restore_states(layer.skip_projection, saved["skip"])
-        _restore_states(layer.post_skip_activation, saved["act"])
+        layer._set(saved, _restore_states)
 
 
 def load_checkpoint(path, network, trainer=None):
