@@ -216,7 +216,15 @@ Phases (each checks its results; any failure ends the run non-zero with no
     against the bound of its activation passes, and of the three together
     against the eager ops they replace, in turns; each wrapper's launches in
     an eager step and each kernel's in one replay of the captured step, by
-    name (once a batch norm: 34 and 46).
+    name (once a batch norm: 34 and 46);
+19b. the activation after a batch norm in those kernels (``act``): at the
+    training cells' BN -> ReLU and BN -> hard-swish pairs (the flagship at
+    120 images, MobileNet-V3-Large at 128, ResNet-50 v1.5 at 256; shapes
+    and activations recorded from one CPU train-mode forward), the fused
+    kernels against the unfused pair (the kernels without an activation and
+    the activation layer's ops under autograd) in turns, device ms, and the
+    first layer's fused act(y) bit-equal to the unfused in fp32. Alone:
+    ``python -c "import chip_smoke as cs; cs.phase_build(); cs.phase_bn_act()"``.
 
 The line before the last is a JSON object of the kernels of the paths (with
 each kernel's launches by route, and both routes' times, device times
@@ -227,7 +235,7 @@ the training kernels their wrapper launches over phase 13b's driven
 steps, and every entry its launches in each run of phases 14-18 and in one
 replay of phase 16's and phase 18's captured steps; phase 19's kernels their
 own numbers by cell); JSON objects of phase
-13b's and phases 14-18's numbers come before it; the last line is
+13b's, phases 14-18's and phase 19b's numbers come before it; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -259,7 +267,7 @@ from dorknet_tpu_torch.layers.base import to_nhwc
 from dorknet_tpu_torch.examples import synthetic_cam_demo
 from dorknet_tpu_torch.models import (EfficientNetLite0, MobileNetV2, MobileNetV3Large, ResNet18,
                                       ResNet50)
-from dorknet_tpu_torch.layers import BatchNormLayer
+from dorknet_tpu_torch.layers import BatchNormLayer, HardSwish, ReLu
 from dorknet_tpu_torch.network import (BatchingServer, InferenceRunner, Trainer,
                                        load_serving_artifact)
 from dorknet_tpu_torch.ops.augment import shear_pad
@@ -271,6 +279,7 @@ from dorknet_tpu_torch.ops.cuda.bn_train import (bn_apply, bn_apply_plain, bn_bw
                                                  bn_bwd_dx_plain, bn_bwd_reduce)
 import dorknet_tpu_torch.ops.cuda.depthwise as dw_mod
 import dorknet_tpu_torch.ops.norm as norm_mod
+import dorknet_tpu_torch.layers.batch_norm as bn_layer_mod
 from dorknet_tpu_torch.ops.cuda.build import load_library
 from dorknet_tpu_torch.ops.cuda.depthwise import (
     _dw_route, _dwgrad_route, _dx_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain,
@@ -3491,6 +3500,120 @@ def phase_bn_train():
     return list(entries.values())
 
 
+# ---- phase 19b: the activation after a batch norm, in its kernels ----------
+# the activation layers a batch norm's kernels apply, as the unfused pair runs them
+BN_ACT_LAYERS = dict(relu=ReLu("relu"), hswish=HardSwish("hswish"))
+
+
+def bn_act_shapes(make, image):
+    """{(shape without the batch axis, act): how many} of a model's
+    train-mode batch norms, from one train-mode forward of one image on the
+    CPU: act is the activation their kernels apply ("none" where none
+    follows)."""
+    seen = []
+    train = bn_layer_mod.batch_norm_train
+
+    def recording(x, *args, act="none", **kw):
+        seen.append((tuple(x.shape[1:]), act))
+        return train(x, *args, act=act, **kw)
+
+    net = make()
+    x = torch.from_numpy(np.random.RandomState(2).randn(1, *image[1:], image[0])
+                         .astype(np.float32))
+    bn_layer_mod.batch_norm_train = recording
+    try:
+        with torch.no_grad():
+            net._train_forward(x)
+    finally:
+        bn_layer_mod.batch_norm_train = train
+    out = {}
+    for key in seen:
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def bn_act_fused(a, act):
+    """A batch norm and its activation in the kernels, forward and
+    backward: (act(y), dx)."""
+    x, gy, mean, var, gamma, beta = a
+    out, norm = bn_apply(x, mean, var, gamma, beta, BN_EPS, act)
+    _, _, coef = bn_bwd_reduce(gy, x, norm, gamma, beta, act)
+    return out, bn_bwd_dx(gy, x, norm, coef, gamma, beta, act)
+
+
+def bn_act_unfused(a, act):
+    """The same pair as before the epilogue: the kernels without an
+    activation, and the activation layer's own ops under autograd between
+    them."""
+    x, gy, mean, var, gamma, beta = a
+    y, norm = bn_apply(x, mean, var, gamma, beta, BN_EPS)
+    y.requires_grad_()
+    with torch.enable_grad():
+        out = BN_ACT_LAYERS[act].fapply(y, True)
+        (g,) = torch.autograd.grad(out, y, gy)
+    _, _, coef = bn_bwd_reduce(g, x, norm, gamma)
+    return out.detach(), bn_bwd_dx(g, x, norm, coef)
+
+
+def bn_act_times(cell, shapes, batch):
+    """For each activation the cell's batch norms feed: at their shapes and
+    the trained batch in fp32, one input a layer, the fused pairs against
+    the unfused (in turns: unfused, fused, fused, unfused), device ms, and
+    the 7-pass bound of the fused; the first layer's fused act(y) bit-equal
+    to the unfused, dx within 1e-5 of its largest magnitude."""
+    out = {}
+    for act in ("relu", "hswish"):
+        layers, elems = [], 0
+        for i, ((shape, a), n) in enumerate(shapes.items()):
+            for j in range(n if a == act else 0):
+                layers.append(bn_train_inputs((batch,) + shape, torch.float32,
+                                              2900 + 50 * i + j))
+                elems += layers[-1][0].numel()
+        if not layers:
+            continue
+        (fy, fdx), (uy, udx) = bn_act_fused(layers[0], act), bn_act_unfused(layers[0], act)
+        err = float((fdx - udx).abs().max()) / float(udx.abs().max())
+        torch.cuda.synchronize()
+        require(torch.equal(fy, uy), "{} {}: the fused forward is not bit-equal".format(cell, act))
+        require(err <= 1e-5, "{} {}: the fused dx is off by {:.3g}".format(cell, act, err))
+        del fy, fdx, uy, udx
+        calls = dict(fused=[lambda a=a: bn_act_fused(a, act) for a in layers],
+                     unfused=[lambda a=a: bn_act_unfused(a, act) for a in layers])
+        turns = [device_ms(calls[k], inner=1) for k in ("unfused", "fused", "fused", "unfused")]
+        bound = 7 * elems * 4 / HBM_BYTES_PER_S * 1e3
+        out[act] = dict(layers=len(layers), gb_a_pass=elems * 4 / 1e9, dx_rel_err=err,
+                        unfused_device_ms=[turns[0], turns[3]],
+                        fused_device_ms=[turns[1], turns[2]], fused_bound_ms=bound)
+        log("  {}: {} BN -> {} pairs ({:.3f} GB a pass) at batch {}: fused {:.4f} / {:.4f} ms "
+            "({:.1%} of the 7-pass bound {:.4f} ms), unfused {:.4f} / {:.4f} ms (in turns); "
+            "act(y) bit-equal, dx within {:.2g}".format(
+                cell, len(layers), act, elems * 4 / 1e9, batch, turns[1], turns[2],
+                bound / min(turns[1:3]), bound, turns[0], turns[3], err))
+        del layers, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_bn_act():
+    """Phase 19b. Returns {cell: {act: times}}."""
+    log("== phase 19b: the activation after a batch norm in bn_apply, bn_bwd_reduce and "
+        "bn_bwd_dx, against the unfused pair, at the training cells' shapes")
+    log("card:", card_line())
+    cells = (("resnet18dw", fresh_resnet18, IMAGE, 2 * AUG_BATCH),
+             ("mnv3l", V3L.fresh, V3L.image, 128),
+             ("resnet50", lambda: ResNet50("resnet50", num_classes=1000, v1_5=True),
+              (3, 224, 224), 256))
+    out = {}
+    for cell, make, image, batch in cells:
+        shapes = bn_act_shapes(make, image)
+        pairs = {act: sum(n for (_, a), n in shapes.items() if a == act)
+                 for act in ("none", "relu", "hswish")}
+        log("  {}: train-mode batch norms by the activation their kernels apply: {}".format(
+            cell, pairs))
+        out[cell] = dict(pairs=pairs, **bn_act_times(cell, shapes, batch))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a "
@@ -3537,6 +3660,7 @@ def main():
     p18_launches.update(p18e_launches)
     p18["deep_zoo"] = p18e
     bn_train = phase_bn_train()
+    bn_act = phase_bn_act()
 
     bound_ms, bound_by = flagship_bound_ms()
     dw_bound, dw_by = flagship_bound_ms(lambda C: 9 * C * 4)
@@ -3581,6 +3705,7 @@ def main():
     log(json.dumps({"phase16": p16}))
     log(json.dumps({"phase17": p17}))
     log(json.dumps({"phase18": p18}))
+    log(json.dumps({"phase19b": bn_act}))
     replay_names = dict(zip((k.__name__ for k in TRAIN_KERNELS), (n for n, _ in MNV2.replay)))
     kernels = [
         dict(name="depthwise3x3", route="cuda",

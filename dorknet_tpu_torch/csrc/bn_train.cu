@@ -50,9 +50,26 @@
 // The caller picks G, the tile, R and P from M, C, V and the SM count
 // (ops/cuda/bn_train.py).
 //
+// The activation epilogue. Each kernel takes the activation that follows the
+// batch norm as a template parameter A: none, ReLU or hard-swish. bn_apply
+// writes act(y) in place of y; bn_bwd_reduce and bn_bwd_dx take the
+// gradient of act(y) and recompute y from x with the forward's exact
+// arithmetic (x^ unrounded, gamma * x^ + beta rounded to T), form
+// dy = g * act'(y) in registers and go on as without an activation. y is
+// never written, and nothing more is read than without the epilogue.
+//   relu(y)   = max(y, 0)             relu'  = 1 where y > 0, else 0
+//   hswish(y) = y * h, h = min(max(y + 3, 0), 6) * (1/6), each step rounded
+//               to T as the unfused ops round it (layers/activations.py)
+//   hswish'   = h + y * (1/6) * clip'(y + 3), clip' 1 inside (0, 6), 0.5 at
+//               0 and 6 (jnp.clip's gradient), 0 outside
+// In fp32 dy is the unfused autograd chain's value; in bf16 it stays in
+// fp32, where the unfused chain rounds it to bf16 before the batch norm.
+//
 // C entry points: dorknet_bn_apply, dorknet_bn_bwd_reduce, dorknet_bn_bwd_dx.
 // Each launches on the caller's stream, does not synchronise, allocates
 // nothing, and returns cudaGetLastError() after its launches.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -61,6 +78,9 @@ namespace {
 constexpr int PW_THREADS = 256;  // threads of a pointwise block
 constexpr int MAX_REDUCE_THREADS = 512;  // threads of a reduce block, at most
 constexpr int MAX_REDUCE_SMEM = 48 * 1024;
+
+// the activation after the batch norm (the C entry points' act argument)
+enum class Act : int { kNone = 0, kRelu = 1, kHSwish = 2 };
 
 // V neighbouring channels of one row, read into and written from fp32.
 template <typename T, int V> struct Chan {
@@ -104,11 +124,66 @@ __device__ __forceinline__ void load_chan(const float* p, int c0, float (&v)[V])
     for (int k = 0; k < V; ++k) v[k] = p[c0 + k];
 }
 
+// y = gamma * x^ + beta, unrounded
+__device__ __forceinline__ float bn_affine(float xh, float g, float b) {
+    return __fadd_rn(__fmul_rn(g, xh), b);
+}
+
+// 1/6 in T, as the unfused chain's constant (a 0-dim tensor of T)
+template <typename T> __device__ __forceinline__ float sixth() {
+    return round_to<T>(1.0f / 6.0f);
+}
+
+// t = y + 3 in T and h = min(max(t, 0), 6) * (1/6) in T, for y in T
+template <typename T>
+__device__ __forceinline__ void hswish_parts(float y, float& t, float& h) {
+    t = round_to<T>(__fadd_rn(y, 3.0f));
+    h = round_to<T>(__fmul_rn(fminf(fmaxf(t, 0.0f), 6.0f), sixth<T>()));
+}
+
+// The value stored for the unrounded y: y itself (the store rounds it to
+// T), or act(y in T), whose last operation the store rounds.
+template <typename T, Act A> __device__ __forceinline__ float act_out(float y) {
+    if constexpr (A == Act::kNone) {
+        return y;
+    } else if constexpr (A == Act::kRelu) {
+        const float r = round_to<T>(y);
+        return r < 0.0f ? 0.0f : r;  // torch.relu: keeps -0 and NaN
+    } else {
+        const float r = round_to<T>(y);
+        float t, h;
+        hswish_parts<T>(r, t, h);
+        return __fmul_rn(r, h);
+    }
+}
+
+// The batch norm's dy from g, the gradient of act(y), at the unrounded y:
+// threshold_backward's rule for ReLU; for hard-swish the mul's two branches
+// added, the clip's branch halved at a bound and masked outside it, in the
+// unfused autograd chain's order.
+template <typename T, Act A> __device__ __forceinline__ float act_grad(float g, float y) {
+    if constexpr (A == Act::kNone) {
+        return g;
+    } else if constexpr (A == Act::kRelu) {
+        return round_to<T>(y) <= 0.0f ? 0.0f : g;
+    } else {
+        const float r = round_to<T>(y);
+        float t, h;
+        hswish_parts<T>(r, t, h);
+        float through = 0.0f;
+        if (t >= 0.0f && t <= 6.0f) {
+            through = __fmul_rn(__fmul_rn(g, r), sixth<T>());
+            if (t == 0.0f || t == 6.0f) through = __fmul_rn(through, 0.5f);
+        }
+        return __fadd_rn(__fmul_rn(g, h), through);
+    }
+}
+
 // ---- forward --------------------------------------------------------------
 
 // norm is (2, C): this kernel writes mean (a copy) and inv there, the
 // per-channel pair the backward reads.
-template <typename T, int V>
+template <typename T, int V, Act A>
 __global__ void __launch_bounds__(PW_THREADS)
 bn_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
                 const float* __restrict__ var, const float* __restrict__ gamma,
@@ -138,8 +213,8 @@ bn_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
         Chan<T, V>::load(x + (i + G) * V, a2);
 #pragma unroll
         for (int k = 0; k < V; ++k) {
-            a[k] = __fadd_rn(__fmul_rn(g[k], bn_xhat(a[k], m[k], iv[k])), b[k]);
-            a2[k] = __fadd_rn(__fmul_rn(g[k], bn_xhat(a2[k], m[k], iv[k])), b[k]);
+            a[k] = act_out<T, A>(bn_affine(bn_xhat(a[k], m[k], iv[k]), g[k], b[k]));
+            a2[k] = act_out<T, A>(bn_affine(bn_xhat(a2[k], m[k], iv[k]), g[k], b[k]));
         }
         Chan<T, V>::store(y + i * V, a);
         Chan<T, V>::store(y + (i + G) * V, a2);
@@ -149,31 +224,45 @@ bn_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
         Chan<T, V>::load(x + i * V, a);
 #pragma unroll
         for (int k = 0; k < V; ++k)
-            a[k] = __fadd_rn(__fmul_rn(g[k], bn_xhat(a[k], m[k], iv[k])), b[k]);
+            a[k] = act_out<T, A>(bn_affine(bn_xhat(a[k], m[k], iv[k]), g[k], b[k]));
         Chan<T, V>::store(y + i * V, a);
     }
 }
 
 // ---- backward, pass 1: partial sums of dy and dy * x^ ----------------------
 
-template <typename T, int V>
+// gamma and beta of V channels, read only where an activation follows
+template <Act A, int V>
+__device__ __forceinline__ void load_affine(const float* gamma, const float* beta, int c0,
+                                            float (&ga)[V], float (&be)[V]) {
+    if constexpr (A != Act::kNone) {
+        load_chan<V>(gamma, c0, ga);
+        load_chan<V>(beta, c0, be);
+    }
+}
+
+template <typename T, int V, Act A>
 __device__ __forceinline__ void accumulate(const T* gy, const T* x, const float (&m)[V],
-                                           const float (&iv)[V], float (&s0)[V],
+                                           const float (&iv)[V], const float (&ga)[V],
+                                           const float (&be)[V], float (&s0)[V],
                                            float (&s1)[V]) {
     float g[V], a[V];
     Chan<T, V>::load(gy, g);
     Chan<T, V>::load(x, a);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-        s0[k] += g[k];
-        s1[k] = fmaf(g[k], round_to<T>(bn_xhat(a[k], m[k], iv[k])), s1[k]);
+        const float xh = bn_xhat(a[k], m[k], iv[k]);
+        const float dy = act_grad<T, A>(g[k], bn_affine(xh, ga[k], be[k]));
+        s0[k] += dy;
+        s1[k] = fmaf(dy, round_to<T>(xh), s1[k]);
     }
 }
 
-template <typename T, int V>
+template <typename T, int V, Act A>
 __global__ void __launch_bounds__(MAX_REDUCE_THREADS)
 bn_bwd_reduce_kernel(const T* __restrict__ gy, const T* __restrict__ x,
-                     const float* __restrict__ norm, float* __restrict__ partials,
+                     const float* __restrict__ norm, const float* __restrict__ gamma,
+                     const float* __restrict__ beta, float* __restrict__ partials,
                      int64_t M, int C, int TW, int R, int P) {
     extern __shared__ float red[];  // [R][TW][2][V], when R > 1
     const int t = threadIdx.x;
@@ -186,15 +275,18 @@ bn_bwd_reduce_kernel(const T* __restrict__ gy, const T* __restrict__ x,
     for (int k = 0; k < V; ++k) s0[k] = s1[k] = 0.0f;
     if (cv * V < C) {
         const int c0 = cv * V;
-        float m[V], iv[V];
+        float m[V], iv[V], ga[V], be[V];
         load_chan<V>(norm, c0, m);
         load_chan<V>(norm + C, c0, iv);
+        load_affine<A, V>(gamma, beta, c0, ga, be);
         int64_t r = M * band / P + lane;
         for (; r + R < r1; r += 2 * R) {
-            accumulate<T, V>(gy + r * C + c0, x + r * C + c0, m, iv, s0, s1);
-            accumulate<T, V>(gy + (r + R) * C + c0, x + (r + R) * C + c0, m, iv, s0, s1);
+            accumulate<T, V, A>(gy + r * C + c0, x + r * C + c0, m, iv, ga, be, s0, s1);
+            accumulate<T, V, A>(gy + (r + R) * C + c0, x + (r + R) * C + c0, m, iv, ga, be,
+                                s0, s1);
         }
-        if (r < r1) accumulate<T, V>(gy + r * C + c0, x + r * C + c0, m, iv, s0, s1);
+        if (r < r1)
+            accumulate<T, V, A>(gy + r * C + c0, x + r * C + c0, m, iv, ga, be, s0, s1);
     }
     float* out = partials + (int64_t)band * 2 * C;
     if (R == 1) {
@@ -267,42 +359,48 @@ bn_bwd_finish_kernel(const float* __restrict__ partials, const float* __restrict
 
 // ---- backward, dx -----------------------------------------------------------
 
-template <typename T, int V>
+template <typename T, int V, Act A>
 __device__ __forceinline__ void dx_vec(const T* gy, const T* x, T* dx, const float (&m)[V],
-                                       const float (&iv)[V], const float (&sc)[V],
+                                       const float (&iv)[V], const float (&ga)[V],
+                                       const float (&be)[V], const float (&sc)[V],
                                        const float (&mb)[V], const float (&mg)[V]) {
     float g[V], a[V];
     Chan<T, V>::load(gy, g);
     Chan<T, V>::load(x, a);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-        const float xh = round_to<T>(bn_xhat(a[k], m[k], iv[k]));
-        g[k] = __fmul_rn(sc[k], __fsub_rn(__fsub_rn(g[k], mb[k]), __fmul_rn(xh, mg[k])));
+        const float xu = bn_xhat(a[k], m[k], iv[k]);
+        const float dy = act_grad<T, A>(g[k], bn_affine(xu, ga[k], be[k]));
+        const float xh = round_to<T>(xu);
+        g[k] = __fmul_rn(sc[k], __fsub_rn(__fsub_rn(dy, mb[k]), __fmul_rn(xh, mg[k])));
     }
     Chan<T, V>::store(dx, g);
 }
 
-template <typename T, int V>
+template <typename T, int V, Act A>
 __global__ void __launch_bounds__(PW_THREADS)
 bn_bwd_dx_kernel(const T* __restrict__ gy, const T* __restrict__ x,
                  const float* __restrict__ norm, const float* __restrict__ coef,
+                 const float* __restrict__ gamma, const float* __restrict__ beta,
                  T* __restrict__ dx, int64_t nvec, int Cv, int64_t G) {
     const int64_t t = (int64_t)blockIdx.x * PW_THREADS + threadIdx.x;
     if (t >= G) return;
     const int c0 = (int)(t % Cv) * V;
     const int C = Cv * V;
-    float m[V], iv[V], sc[V], mb[V], mg[V];
+    float m[V], iv[V], ga[V], be[V], sc[V], mb[V], mg[V];
     load_chan<V>(norm, c0, m);
     load_chan<V>(norm + C, c0, iv);
+    load_affine<A, V>(gamma, beta, c0, ga, be);
     load_chan<V>(coef, c0, sc);
     load_chan<V>(coef + C, c0, mb);
     load_chan<V>(coef + 2 * C, c0, mg);
     int64_t i = t;
     for (; i + G < nvec; i += 2 * G) {
-        dx_vec<T, V>(gy + i * V, x + i * V, dx + i * V, m, iv, sc, mb, mg);
-        dx_vec<T, V>(gy + (i + G) * V, x + (i + G) * V, dx + (i + G) * V, m, iv, sc, mb, mg);
+        dx_vec<T, V, A>(gy + i * V, x + i * V, dx + i * V, m, iv, ga, be, sc, mb, mg);
+        dx_vec<T, V, A>(gy + (i + G) * V, x + (i + G) * V, dx + (i + G) * V, m, iv, ga, be,
+                        sc, mb, mg);
     }
-    if (i < nvec) dx_vec<T, V>(gy + i * V, x + i * V, dx + i * V, m, iv, sc, mb, mg);
+    if (i < nvec) dx_vec<T, V, A>(gy + i * V, x + i * V, dx + i * V, m, iv, ga, be, sc, mb, mg);
 }
 
 // ---- launches -----------------------------------------------------------------
@@ -317,30 +415,32 @@ inline unsigned pointwise_blocks(int64_t G) {
     return (unsigned)((G + PW_THREADS - 1) / PW_THREADS);
 }
 
-template <typename T, int V>
+template <typename T, int V, Act A>
 cudaError_t apply_launch(const void* x, const float* mean, const float* var,
                          const float* gamma, const float* beta, float eps, void* y,
                          float* norm, int64_t M, int C, int64_t G, cudaStream_t s) {
     if (!pointwise_ok(M, C, V, G)) return cudaErrorInvalidValue;
     if (V > 1 && !(aligned16(x) && aligned16(y))) return cudaErrorInvalidValue;
-    bn_apply_kernel<T, V><<<pointwise_blocks(G), PW_THREADS, 0, s>>>(
+    bn_apply_kernel<T, V, A><<<pointwise_blocks(G), PW_THREADS, 0, s>>>(
         static_cast<const T*>(x), mean, var, gamma, beta, eps, static_cast<T*>(y), norm,
         M * C / V, C / V, G);
     return cudaGetLastError();
 }
 
-template <typename T, int V>
+template <typename T, int V, Act A>
 cudaError_t reduce_launch(const void* gy, const void* x, const float* norm,
-                          const float* gamma, float* partials, float* grads, float* coef,
-                          int64_t M, int C, int TW, int R, int P, cudaStream_t s) {
+                          const float* gamma, const float* beta, float* partials,
+                          float* grads, float* coef, int64_t M, int C, int TW, int R, int P,
+                          cudaStream_t s) {
     if (C % V != 0 || TW < 1 || R < 1 || (int64_t)TW * R > MAX_REDUCE_THREADS)
         return cudaErrorInvalidValue;
     if (V > 1 && !(aligned16(gy) && aligned16(x))) return cudaErrorInvalidValue;
     const size_t smem = R > 1 ? (size_t)R * TW * 2 * V * sizeof(float) : 0;
     if (smem > MAX_REDUCE_SMEM) return cudaErrorInvalidValue;
     const int tiles = (C / V + TW - 1) / TW;
-    bn_bwd_reduce_kernel<T, V><<<dim3(tiles, P), TW * R, smem, s>>>(
-        static_cast<const T*>(gy), static_cast<const T*>(x), norm, partials, M, C, TW, R, P);
+    bn_bwd_reduce_kernel<T, V, A><<<dim3(tiles, P), TW * R, smem, s>>>(
+        static_cast<const T*>(gy), static_cast<const T*>(x), norm, gamma, beta, partials, M,
+        C, TW, R, P);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     bn_bwd_finish_kernel<<<(C + STATS_TX - 1) / STATS_TX, dim3(STATS_TX, STATS_TY), 0, s>>>(
@@ -348,60 +448,82 @@ cudaError_t reduce_launch(const void* gy, const void* x, const float* norm,
     return cudaGetLastError();
 }
 
-template <typename T, int V>
+template <typename T, int V, Act A>
 cudaError_t dx_launch(const void* gy, const void* x, const float* norm, const float* coef,
-                      void* dx, int64_t M, int C, int64_t G, cudaStream_t s) {
+                      const float* gamma, const float* beta, void* dx, int64_t M, int C,
+                      int64_t G, cudaStream_t s) {
     if (!pointwise_ok(M, C, V, G)) return cudaErrorInvalidValue;
     if (V > 1 && !(aligned16(gy) && aligned16(x) && aligned16(dx)))
         return cudaErrorInvalidValue;
-    bn_bwd_dx_kernel<T, V><<<pointwise_blocks(G), PW_THREADS, 0, s>>>(
-        static_cast<const T*>(gy), static_cast<const T*>(x), norm, coef, static_cast<T*>(dx),
-        M * C / V, C / V, G);
+    bn_bwd_dx_kernel<T, V, A><<<pointwise_blocks(G), PW_THREADS, 0, s>>>(
+        static_cast<const T*>(gy), static_cast<const T*>(x), norm, coef, gamma, beta,
+        static_cast<T*>(dx), M * C / V, C / V, G);
     return cudaGetLastError();
+}
+
+template <typename T> struct Type { using type = T; };
+template <int V> using Width = std::integral_constant<int, V>;
+template <Act A> using Epilogue = std::integral_constant<Act, A>;
+
+// f(Type<T>, Width<V>, Epilogue<A>) for the entry points' dtype, vec and act
+// codes: 2 x 2 x 3 instantiations of each kernel.
+template <typename F>
+cudaError_t dispatch(int dtype, int vec, int act, F&& f) {
+    auto by_act = [&](auto type, auto width) -> cudaError_t {
+        switch (act) {
+            case 0: return f(type, width, Epilogue<Act::kNone>{});
+            case 1: return f(type, width, Epilogue<Act::kRelu>{});
+            case 2: return f(type, width, Epilogue<Act::kHSwish>{});
+            default: return cudaErrorInvalidValue;
+        }
+    };
+    switch (dtype * 2 + vec) {
+        case 0: return by_act(Type<float>{}, Width<1>{});
+        case 1: return by_act(Type<float>{}, Width<4>{});
+        case 2: return by_act(Type<__nv_bfloat16>{}, Width<1>{});
+        case 3: return by_act(Type<__nv_bfloat16>{}, Width<8>{});
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
 
 #define BN_F(p) static_cast<const float*>(p)
+#define BN_ROUTE(type, width, epi) \
+    typename decltype(type)::type, decltype(width)::value, decltype(epi)::value
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (the activations, contiguous (M, C)); the
 // per-channel vectors are float32 (C,), norm (2, C). vec: 1 = vectors of 16
 // bytes (C a multiple of 4 fp32 or 8 bf16, activations 16-byte aligned),
-// 0 = one element. threads: the pointwise grid G, a multiple of C / V and
-// at most M rows of it.
+// 0 = one element. act: the activation after the batch norm, 0 = none,
+// 1 = ReLU, 2 = hard-swish; y is act(y). threads: the pointwise grid G, a
+// multiple of C / V and at most M rows of it.
 int dorknet_bn_apply(const void* x, const void* mean, const void* var, const void* gamma,
                      const void* beta, float eps, void* y, void* norm, long long M, int C,
-                     int vec, long long threads, int dtype, void* stream, int device) {
+                     int vec, int act, long long threads, int dtype, void* stream,
+                     int device) {
     if (vec != 0 && vec != 1) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     float* np = static_cast<float*>(norm);
-    switch (dtype * 2 + vec) {
-        case 0: return (int)apply_launch<float, 1>(x, BN_F(mean), BN_F(var), BN_F(gamma),
-                                                   BN_F(beta), eps, y, np, M, C, threads, s);
-        case 1: return (int)apply_launch<float, 4>(x, BN_F(mean), BN_F(var), BN_F(gamma),
-                                                   BN_F(beta), eps, y, np, M, C, threads, s);
-        case 2: return (int)apply_launch<__nv_bfloat16, 1>(x, BN_F(mean), BN_F(var),
-                                                           BN_F(gamma), BN_F(beta), eps, y,
-                                                           np, M, C, threads, s);
-        case 3: return (int)apply_launch<__nv_bfloat16, 8>(x, BN_F(mean), BN_F(var),
-                                                           BN_F(gamma), BN_F(beta), eps, y,
-                                                           np, M, C, threads, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)dispatch(dtype, vec, act, [&](auto type, auto width, auto epi) {
+        return apply_launch<BN_ROUTE(type, width, epi)>(
+            x, BN_F(mean), BN_F(var), BN_F(gamma), BN_F(beta), eps, y, np, M, C, threads, s);
+    });
 }
 
+// gy is the gradient of act(y); beta is read only when act is not 0.
 // partials: float32 (P, 2, C) scratch; grads: float32 (2, C), dgamma then
 // dbeta; coef: float32 (3, C), gamma * inv, dbeta / M, dgamma / M. The
 // block is tile channel vectors x lanes rows (at most 512 threads);
 // 1 <= P <= min(M, 65535).
 int dorknet_bn_bwd_reduce(const void* gy, const void* x, const void* norm, const void* gamma,
-                          void* partials, void* grads, void* coef, long long M, int C,
-                          int tile, int lanes, int P, int vec, int dtype, void* stream,
-                          int device) {
+                          const void* beta, void* partials, void* grads, void* coef,
+                          long long M, int C, int tile, int lanes, int P, int vec, int act,
+                          int dtype, void* stream, int device) {
     if (M < 1 || C < 1 || P < 1 || P > 65535 || P > M || (vec != 0 && vec != 1))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
@@ -410,38 +532,26 @@ int dorknet_bn_bwd_reduce(const void* gy, const void* x, const void* norm, const
     float* pp = static_cast<float*>(partials);
     float* gp = static_cast<float*>(grads);
     float* cp = static_cast<float*>(coef);
-    switch (dtype * 2 + vec) {
-        case 0: return (int)reduce_launch<float, 1>(gy, x, BN_F(norm), BN_F(gamma), pp, gp, cp,
-                                                    M, C, tile, lanes, P, s);
-        case 1: return (int)reduce_launch<float, 4>(gy, x, BN_F(norm), BN_F(gamma), pp, gp, cp,
-                                                    M, C, tile, lanes, P, s);
-        case 2: return (int)reduce_launch<__nv_bfloat16, 1>(gy, x, BN_F(norm), BN_F(gamma), pp,
-                                                            gp, cp, M, C, tile, lanes, P, s);
-        case 3: return (int)reduce_launch<__nv_bfloat16, 8>(gy, x, BN_F(norm), BN_F(gamma), pp,
-                                                            gp, cp, M, C, tile, lanes, P, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)dispatch(dtype, vec, act, [&](auto type, auto width, auto epi) {
+        return reduce_launch<BN_ROUTE(type, width, epi)>(
+            gy, x, BN_F(norm), BN_F(gamma), BN_F(beta), pp, gp, cp, M, C, tile, lanes, P, s);
+    });
 }
 
-// dx in dy's dtype; norm (2, C) and coef (3, C) as above.
+// dx in dy's dtype; norm (2, C) and coef (3, C) as above; gy is the
+// gradient of act(y); gamma and beta are read only when act is not 0.
 int dorknet_bn_bwd_dx(const void* gy, const void* x, const void* norm, const void* coef,
-                      void* dx, long long M, int C, int vec, long long threads, int dtype,
-                      void* stream, int device) {
+                      const void* gamma, const void* beta, void* dx, long long M, int C,
+                      int vec, int act, long long threads, int dtype, void* stream,
+                      int device) {
     if (vec != 0 && vec != 1) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (dtype * 2 + vec) {
-        case 0: return (int)dx_launch<float, 1>(gy, x, BN_F(norm), BN_F(coef), dx, M, C,
-                                                threads, s);
-        case 1: return (int)dx_launch<float, 4>(gy, x, BN_F(norm), BN_F(coef), dx, M, C,
-                                                threads, s);
-        case 2: return (int)dx_launch<__nv_bfloat16, 1>(gy, x, BN_F(norm), BN_F(coef), dx, M,
-                                                        C, threads, s);
-        case 3: return (int)dx_launch<__nv_bfloat16, 8>(gy, x, BN_F(norm), BN_F(coef), dx, M,
-                                                        C, threads, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)dispatch(dtype, vec, act, [&](auto type, auto width, auto epi) {
+        return dx_launch<BN_ROUTE(type, width, epi)>(
+            gy, x, BN_F(norm), BN_F(coef), BN_F(gamma), BN_F(beta), dx, M, C, threads, s);
+    });
 }
 
 }  // extern "C"

@@ -1,31 +1,19 @@
 """Activation layers (counterpart of ``dorknet_tpu/layers/activations.py``).
 
-The clips are written as ``torch.minimum(torch.maximum(...))``, as
-``jnp.clip`` computes them, so their gradient at a bound is 0.5, as the JAX
-package's (``torch.clamp``'s would be 1)."""
-
-import functools
+The functions they apply are ``ops/activation.py``'s: the clips are written
+as ``torch.minimum(torch.maximum(...))``, as ``jnp.clip`` computes them, so
+their gradient at a bound is 0.5, as the JAX package's (``torch.clamp``'s
+would be 1). In a train-mode layer list, a ``ReLu`` or ``HardSwish`` right
+after a ``BatchNormLayer`` runs inside the batch norm's kernels
+(``layers/sequence.py``); its ``fapply`` is then not called."""
 
 import torch
 
 from dorknet_tpu_torch.layers.base import Layer
 from dorknet_tpu_torch.layers.registry import register_layer
+from dorknet_tpu_torch.ops.activation import (  # noqa: F401 (constant: its cache)
+    clip, constant, hard_sigmoid, hard_swish)
 from dorknet_tpu_torch.utils import h5io
-
-
-@functools.cache
-def constant(value, dtype):
-    """``value`` as a 0-dim CPU tensor of ``dtype``: a binary op takes it as
-    a scalar on any device, with no launch or allocation there (and a
-    captured graph keeps it as a kernel argument). Made outside inference
-    mode, so autograd may save it whatever mode first asked for it."""
-    with torch.inference_mode(False):
-        return torch.tensor(value, dtype=dtype)
-
-
-def clip(x, lo, hi):
-    """min(max(x, lo), hi), as ``jnp.clip``: the gradient at a bound is 0.5."""
-    return torch.minimum(torch.maximum(x, constant(lo, x.dtype)), constant(hi, x.dtype))
 
 
 @register_layer
@@ -77,13 +65,6 @@ class IdentityLayer(Layer):
         pass
 
 
-def hard_sigmoid(x):
-    """clip(x + 3, 0, 6) * (1/6) in x's dtype, as the JAX package computes
-    it: a multiply by the constant 1/6 (not a division by 6), and in bf16
-    the constant rounded to bf16, as JAX's weak-typed Python scalars are."""
-    return clip(x + 3.0, 0.0, 6.0) * constant(1.0 / 6.0, x.dtype)
-
-
 @register_layer
 class HardSwish(Layer):
     """x * relu6(x + 3) / 6, MobileNet-V3's activation (not in the
@@ -93,7 +74,7 @@ class HardSwish(Layer):
         return "HardSwish({})".format(self.layer_name)
 
     def fapply(self, x, train=False):
-        return x * hard_sigmoid(x)
+        return hard_swish(x)
 
     def save_to_h5(self, open_f, save_grads=True):
         h5io.create_layer_info(open_f, self.layer_name, "HardSwish")

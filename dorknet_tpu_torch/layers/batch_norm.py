@@ -94,17 +94,23 @@ class BatchNormLayer(Layer):
                 self.running_mean.copy_(mean.reshape(shape))
                 self.running_std.copy_(std.reshape(shape))
 
-    def fapply(self, x, train=False):
+    def fapply(self, x, train=False, act="none"):
+        """``act`` ("relu" or "hswish", train mode only) applies the
+        activation that follows in the batch norm's own kernels
+        (``layers/sequence.py`` passes it)."""
         if train:
             fold = self.bn_initialized() and not self.stats_frozen
             y, mean, std = batch_norm_train(
                 x, self.gamma.reshape(-1), self.beta.reshape(-1),
                 self.running_mean.reshape(-1) if fold else None,
                 self.running_std.reshape(-1) if fold else None,
-                momentum=self.run_momentum, eps=self.eps, initialized=fold)
+                momentum=self.run_momentum, eps=self.eps, initialized=fold, act=act)
             if not self.stats_frozen:
                 self._write_running_stats(mean, std, x.device)
             return y
+        if act != "none":
+            raise ValueError("BatchNormLayer '{}': act={!r} runs in train mode only".format(
+                self.layer_name, act))
         if self.running_mean is None:
             raise ValueError(
                 "BatchNormLayer '{}' has no running statistics; load a "

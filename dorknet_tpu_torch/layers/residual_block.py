@@ -1,6 +1,8 @@
 """Residual block (counterpart of ``dorknet_tpu/layers/residual_block.py``):
-``layer_list`` runs in sequence, ``skip_projection`` (or identity) bridges
-the input, the two join by addition and ``post_skip_activation`` follows.
+``layer_list`` runs in sequence (``layers/sequence.run_layers``: a
+train-mode batch norm and the ReLU or hard-swish after it as one call),
+``skip_projection`` (or identity) bridges the input, the two join by
+addition and ``post_skip_activation`` follows.
 Parameter, state and gradient trees are ``{"layers": [...], "skip": {...},
 "act": {...}}``, as in the JAX package; the h5 schema (flat-namespace
 children plus attr-encoded structure) is the reference's.
@@ -19,6 +21,7 @@ from torch import nn
 
 from dorknet_tpu_torch.layers.base import Layer
 from dorknet_tpu_torch.layers.registry import get_layer_class, register_layer
+from dorknet_tpu_torch.layers.sequence import run_layers
 from dorknet_tpu_torch.utils import h5io
 
 
@@ -116,9 +119,7 @@ class ResidualBlock(Layer):
         self._set(tree, lambda l, t: l.set_state(t))
 
     def fapply(self, x, train=False):
-        h = x
-        for l in self.layer_list:
-            h = l.fapply(h, train)
+        h = run_layers(self.layer_list, x, train)
         skip = x
         if self.skip_projection is not None:
             skip = self.skip_projection.fapply(x, train)

@@ -35,6 +35,7 @@ from dorknet_tpu_torch.layers.base import Layer, to_nchw, to_nhwc
 from dorknet_tpu_torch.layers.batch_norm import running_stats_frozen
 from dorknet_tpu_torch.layers.losses import SoftmaxWithCrossEntropy
 from dorknet_tpu_torch.layers.registry import get_layer_class
+from dorknet_tpu_torch.layers.sequence import run_layers
 from dorknet_tpu_torch.ops.loss import softmax_probs
 
 
@@ -91,24 +92,24 @@ class FeedForwardNetwork(nn.Module):
 
     # ------------------------------------------------------------------ #
     def _run_layers(self, x, train=False, layer_wrap=None):
-        """Every layer's fapply over NHWC x. Returns (out, reported_reg,
-        full_reg): the regularisation terms are summed in train mode only
-        (0.0 otherwise). layer_wrap(layer, fapply) may return a transformed
-        apply (the trainer's per-block rematerialisation)."""
+        """Every layer over NHWC x (``layers/sequence.run_layers``: in train
+        mode a batch norm and the ReLU or hard-swish after it as one call).
+        Returns (out, reported_reg, full_reg): the regularisation terms are
+        summed in train mode only (0.0 otherwise), layer by layer.
+        layer_wrap(layer, apply) may return a transformed apply (the
+        trainer's per-block rematerialisation)."""
+        x = run_layers(self.layers, x, train, layer_wrap)
         reported_reg = full_reg = 0.0
-        for l in self.layers:
-            apply = l.fapply if layer_wrap is None else layer_wrap(l, l.fapply)
-            x = apply(x, train)
-            if train:
+        if train:
+            for l in self.layers:
                 reported_reg = reported_reg + l.reg_loss()
                 full_reg = full_reg + l.reg_loss_full()
         return x, reported_reg, full_reg
 
     def _run_prefix(self, x, index, train=False):
-        """layers[0..index] over NHWC x; the rest do not run."""
-        for l in self.layers[:index + 1]:
-            x = l.fapply(x, train)
-        return x
+        """layers[0..index] over NHWC x; the rest do not run (a batch norm
+        at ``index`` fuses nothing after it)."""
+        return run_layers(self.layers[:index + 1], x, train)
 
     def _test_fn(self, X):
         """Test-mode forward of an NCHW float32 tensor on the network's

@@ -19,11 +19,24 @@ work in 7 activation passes, where eager PyTorch ops took 22:
 Each computes in fp32, every operation rounded on its own, in the JAX
 formula's order. On a CUDA tensor each launches its kernel, or raises; on a
 CPU tensor it computes the same function with its plain PyTorch version
-(``*_plain``). Launches are counted in each one's ``.launches``.
+(``*_plain``). Launches are counted in each one's ``.launches``, and
+``bn_apply``'s also by activation in ``.launches_by_act``.
+
+Each takes ``act``, the activation that follows the batch norm: ``"none"``,
+``"relu"`` or ``"hswish"`` (``ops/activation.BN_ACTIVATIONS``). With one,
+``bn_apply`` returns act(y) and writes no y; ``bn_bwd_reduce`` and
+``bn_bwd_dx`` take ``gy``, the gradient of act(y), and gamma and beta
+besides: they recompute y from x with the forward's arithmetic, rounded to
+x's dtype, and differentiate the activation there as the unfused autograd
+chain does (ReLU's 0 at y == 0, hard-swish's clip 0.5 at y + 3 == 0 and
+6). The forward is bit-equal to the unfused chain; so is the activation's
+gradient in fp32. In bf16 the activation's gradient stays in fp32 where
+the unfused chain rounds it to bf16 before the batch norm's backward.
 """
 
 import torch
 
+from dorknet_tpu_torch.ops.activation import BN_ACTIVATIONS, clip, constant
 from dorknet_tpu_torch.ops.cuda.bn_stats import _DTYPE_CODE, sm_count
 from dorknet_tpu_torch.ops.cuda.build import check, load_library
 
@@ -34,6 +47,8 @@ _THREADS_PER_SM = 2048
 # wave of blocks
 REDUCE_THREADS, MAX_TILE, MIN_LANE_ROWS = 256, 512, 16
 _MAX_BANDS = 65535
+# the C entry points' act codes
+ACT_CODE = {"none": 0, "relu": 1, "hswish": 2}
 
 
 def _rows(x):
@@ -101,6 +116,11 @@ def reduce_tiling(M, C, V, sms):
     return tile, lanes, max(1, min(want, _MAX_BANDS, M))
 
 
+def _ptr(t):
+    """A tensor's address, or NULL for an argument the kernel does not read."""
+    return None if t is None else t.data_ptr()
+
+
 def _launch_args(x):
     return _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream, x.device.index
 
@@ -113,41 +133,74 @@ def _on_card(what, x):
     return True
 
 
+def _check_act_name(what, act):
+    if act not in ACT_CODE:
+        raise ValueError("{}: act must be one of {}, got {!r}".format(what, sorted(ACT_CODE), act))
+
+
 def _xhat_saved(x, norm):
     """x^ as the backward reads it: (x - mean) * inv in fp32, rounded to x's
     dtype (what the JAX forward saves), widened back."""
     return ((x.float() - norm[0]) * norm[1]).to(x.dtype).float()
 
 
-def bn_apply_plain(x, mean, var, gamma, beta, eps):
+def _affine(x, mean, inv, gamma, beta):
+    """y = gamma * ((x - mean) * inv) + beta in fp32, rounded to x's dtype."""
+    return (gamma * ((x.float() - mean) * inv) + beta).to(x.dtype)
+
+
+def _dy(gy, x, norm, gamma, beta, act):
+    """The batch norm's dy in fp32 from gy, the gradient of act(y): y
+    recomputed from x, rounded to x's dtype, and the unfused autograd
+    chain's rules in its order, every step in fp32."""
+    g = gy.float()
+    if act == "none":
+        return g
+    y = _affine(x, norm[0], norm[1], gamma, beta)
+    yf = y.float()
+    if act == "relu":  # threshold_backward: 0 where y <= 0
+        return torch.where(yf <= 0, torch.zeros_like(g), g)
+    sixth = constant(1.0 / 6.0, y.dtype).float()
+    t = (yf + 3.0).to(y.dtype).float()
+    h = (clip(t, 0.0, 6.0) * sixth).to(y.dtype).float()
+    through = (g * yf) * sixth
+    through = torch.where((t == 0) | (t == 6), through * 0.5, through)
+    through = torch.where((t < 0) | (t > 6), torch.zeros_like(g), through)
+    return g * h + through
+
+
+def bn_apply_plain(x, mean, var, gamma, beta, eps, act="none"):
     inv = torch.rsqrt(var + eps)
-    y = (gamma * ((x.float() - mean) * inv) + beta).to(x.dtype)
-    return y, torch.stack([mean, inv])
+    return BN_ACTIVATIONS[act](_affine(x, mean, inv, gamma, beta)), torch.stack([mean, inv])
 
 
-def bn_bwd_reduce_plain(gy, x, norm, gamma):
+def bn_bwd_reduce_plain(gy, x, norm, gamma, beta=None, act="none"):
     M, C = _rows(x)
-    gyf = gy.float().reshape(M, C)
-    x_hat = _xhat_saved(x.reshape(M, C), norm)
+    x = x.reshape(M, C)
+    gyf = _dy(gy.reshape(M, C), x, norm, gamma, beta, act)
+    x_hat = _xhat_saved(x, norm)
     dbeta = gyf.sum(dim=0)
     dgamma = (gyf * x_hat).sum(dim=0)
     count = torch.full_like(dbeta, float(M))  # a true division, as the kernel's
     return dgamma, dbeta, torch.stack([gamma * norm[1], dbeta / count, dgamma / count])
 
 
-def bn_bwd_dx_plain(gy, x, norm, coef):
+def bn_bwd_dx_plain(gy, x, norm, coef, gamma=None, beta=None, act="none"):
     scale, mb, mg = coef
-    return (scale * (gy.float() - mb - _xhat_saved(x, norm) * mg)).to(gy.dtype)
+    gyf = _dy(gy, x, norm, gamma, beta, act)
+    return (scale * (gyf - mb - _xhat_saved(x, norm) * mg)).to(gy.dtype)
 
 
-def bn_apply(x, mean, var, gamma, beta, eps):
+def bn_apply(x, mean, var, gamma, beta, eps, act="none"):
     """x: (..., C) contiguous float32 or bfloat16; mean, var (the batch
-    statistics), gamma and beta: float32 (C,). Returns (y, norm): y in x's
-    dtype, norm float32 (2, C), mean and inv = rsqrt(var + eps)."""
+    statistics), gamma and beta: float32 (C,). Returns (y, norm): y =
+    act(gamma * x^ + beta) in x's dtype, norm float32 (2, C), mean and inv =
+    rsqrt(var + eps)."""
+    _check_act_name("bn_apply", act)
     _check_act("bn_apply", "x", x)
     _check_chan("bn_apply", x, mean=mean, var=var, gamma=gamma, beta=beta)
     if not _on_card("bn_apply", x):
-        return bn_apply_plain(x, mean, var, gamma, beta, eps)
+        return bn_apply_plain(x, mean, var, gamma, beta, eps, act)
     M, C = _rows(x)
     y = torch.empty_like(x)
     norm = torch.empty((2, C), dtype=torch.float32, device=x.device)
@@ -156,22 +209,37 @@ def bn_apply(x, mean, var, gamma, beta, eps):
     kernels = load_library()
     err = kernels.lib.dorknet_bn_apply(
         x.data_ptr(), mean.data_ptr(), var.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        float(eps), y.data_ptr(), norm.data_ptr(), M, C, int(V > 1), G, *_launch_args(x))
+        float(eps), y.data_ptr(), norm.data_ptr(), M, C, int(V > 1), ACT_CODE[act], G,
+        *_launch_args(x))
     check(kernels.lib, err, "bn_apply launch")
     bn_apply.launches += 1
+    bn_apply.launches_by_act[act] += 1
     return y, norm
 
 
-def bn_bwd_reduce(gy, x, norm, gamma):
+def _check_backward(what, x, act, vectors, affine):
+    """The backward's per-channel inputs: ``vectors``, and with an
+    activation, which recomputes y from them, ``affine`` (gamma, beta)."""
+    _check_act_name(what, act)
+    if act != "none":
+        gamma, beta = affine
+        if gamma is None or beta is None:
+            raise ValueError("{}: act={!r} needs gamma and beta".format(what, act))
+        vectors = dict(vectors, gamma=gamma, beta=beta)
+    _check_chan(what, x, **vectors)
+
+
+def bn_bwd_reduce(gy, x, norm, gamma, beta=None, act="none"):
     """gy and x: (..., C) contiguous, one dtype (float32 or bfloat16); norm:
-    bn_apply's (2, C); gamma float32 (C,). Returns (dgamma, dbeta, coef):
-    float32 (C,), (C,) and (3, C). Deterministic: the same input gives
-    bit-equal results."""
+    bn_apply's (2, C); gamma float32 (C,), and with an activation beta too;
+    gy the gradient of bn_apply's output under the same act. Returns
+    (dgamma, dbeta, coef): float32 (C,), (C,) and (3, C). Deterministic: the
+    same input gives bit-equal results."""
     _check_act("bn_bwd_reduce", "x", x)
     _check_act("bn_bwd_reduce", "gy", gy, like=x)
-    _check_chan("bn_bwd_reduce", x, norm=norm, gamma=gamma)
+    _check_backward("bn_bwd_reduce", x, act, dict(norm=norm, gamma=gamma), (gamma, beta))
     if not _on_card("bn_bwd_reduce", x):
-        return bn_bwd_reduce_plain(gy, x, norm, gamma)
+        return bn_bwd_reduce_plain(gy, x, norm, gamma, beta, act)
     M, C = _rows(x)
     V = vector_width(C, x.dtype, gy, x)
     tile, lanes, P = reduce_tiling(M, C, V, sm_count(x.device.index))
@@ -180,34 +248,37 @@ def bn_bwd_reduce(gy, x, norm, gamma):
     coef = torch.empty((3, C), dtype=torch.float32, device=x.device)
     kernels = load_library()
     err = kernels.lib.dorknet_bn_bwd_reduce(
-        gy.data_ptr(), x.data_ptr(), norm.data_ptr(), gamma.data_ptr(), partials.data_ptr(),
-        grads.data_ptr(), coef.data_ptr(), M, C, tile, lanes, P, int(V > 1), *_launch_args(x))
+        gy.data_ptr(), x.data_ptr(), norm.data_ptr(), gamma.data_ptr(), _ptr(beta),
+        partials.data_ptr(), grads.data_ptr(), coef.data_ptr(), M, C, tile, lanes, P,
+        int(V > 1), ACT_CODE[act], *_launch_args(x))
     check(kernels.lib, err, "bn_bwd_reduce launch")
     bn_bwd_reduce.launches += 1
     return grads[0], grads[1], coef
 
 
-def bn_bwd_dx(gy, x, norm, coef):
+def bn_bwd_dx(gy, x, norm, coef, gamma=None, beta=None, act="none"):
     """gy and x: (..., C) contiguous, one dtype; norm (2, C) and coef (3, C)
-    from bn_apply and bn_bwd_reduce. Returns dx in gy's dtype and shape."""
+    from bn_apply and bn_bwd_reduce; with an activation, gamma and beta
+    float32 (C,). Returns dx in gy's dtype and shape."""
     _check_act("bn_bwd_dx", "x", x)
     _check_act("bn_bwd_dx", "gy", gy, like=x)
-    _check_chan("bn_bwd_dx", x, norm=norm, coef=coef)
+    _check_backward("bn_bwd_dx", x, act, dict(norm=norm, coef=coef), (gamma, beta))
     if not _on_card("bn_bwd_dx", x):
-        return bn_bwd_dx_plain(gy, x, norm, coef)
+        return bn_bwd_dx_plain(gy, x, norm, coef, gamma, beta, act)
     M, C = _rows(x)
     dx = torch.empty_like(gy)
     V = vector_width(C, x.dtype, gy, x, dx)
     G = pointwise_threads(M, C, V, sm_count(x.device.index))
     kernels = load_library()
     err = kernels.lib.dorknet_bn_bwd_dx(
-        gy.data_ptr(), x.data_ptr(), norm.data_ptr(), coef.data_ptr(), dx.data_ptr(), M, C,
-        int(V > 1), G, *_launch_args(x))
+        gy.data_ptr(), x.data_ptr(), norm.data_ptr(), coef.data_ptr(), _ptr(gamma), _ptr(beta),
+        dx.data_ptr(), M, C, int(V > 1), ACT_CODE[act], G, *_launch_args(x))
     check(kernels.lib, err, "bn_bwd_dx launch")
     bn_bwd_dx.launches += 1
     return dx
 
 
 bn_apply.launches = 0
+bn_apply.launches_by_act = dict.fromkeys(ACT_CODE, 0)
 bn_bwd_reduce.launches = 0
 bn_bwd_dx.launches = 0

@@ -78,12 +78,14 @@ def _bind(lib):
     lib.dorknet_bn_stats.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, vp, ci]
     lib.dorknet_bn_stats.restype = ci
     ll, cf = ctypes.c_longlong, ctypes.c_float
-    lib.dorknet_bn_apply.argtypes = [vp, vp, vp, vp, vp, cf, vp, vp, ll, ci, ci, ll, ci, vp, ci]
+    lib.dorknet_bn_apply.argtypes = [vp, vp, vp, vp, vp, cf, vp, vp, ll, ci, ci, ci, ll, ci, vp,
+                                     ci]
     lib.dorknet_bn_apply.restype = ci
-    lib.dorknet_bn_bwd_reduce.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ci, ci, ci, ci, ci,
-                                          ci, vp, ci]
+    lib.dorknet_bn_bwd_reduce.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ll, ci, ci, ci, ci,
+                                          ci, ci, ci, vp, ci]
     lib.dorknet_bn_bwd_reduce.restype = ci
-    lib.dorknet_bn_bwd_dx.argtypes = [vp, vp, vp, vp, vp, ll, ci, ci, ll, ci, vp, ci]
+    lib.dorknet_bn_bwd_dx.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ci, ci, ci, ll, ci, vp,
+                                      ci]
     lib.dorknet_bn_bwd_dx.restype = ci
     lib.dorknet_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
                                    ci, vp, ci]

@@ -19,6 +19,12 @@ write each activation no more than XLA's fusion of the same formulas does in
 the JAX step (7 passes a batch norm after the statistics' read); on the CPU
 their plain versions. The forward saves x itself, not x̂: the backward
 recomputes x̂ from x with the forward's arithmetic.
+
+``act`` folds the activation that follows the batch norm (``"relu"`` or
+``"hswish"``) into the same kernels: the forward returns act(y) and never
+writes y, the backward recomputes y from x and differentiates the
+activation in registers (``ops/cuda/bn_train.py``). It saves beta besides
+(the parameter itself, no copy): no activation-sized tensor more.
 """
 
 import torch
@@ -28,34 +34,41 @@ from dorknet_tpu_torch.ops.cuda.bn_train import bn_apply, bn_bwd_dx, bn_bwd_redu
 
 
 class _BNCore(torch.autograd.Function):
-    """Batch-stat normalise over every axis but the last. Returns (y, mean,
-    std): y in x's dtype, the statistics in fp32 and not differentiable."""
+    """Batch-stat normalise over every axis but the last, then ``act``.
+    Returns (y, mean, std): y in x's dtype, the statistics in fp32 and not
+    differentiable."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
+    def forward(ctx, x, gamma, beta, eps, act="none"):
         mean, var = batch_norm_stats(x)
-        y, norm = bn_apply(x, mean, var, gamma, beta, eps)
+        y, norm = bn_apply(x, mean, var, gamma, beta, eps, act)
+        # beta only where the backward recomputes y for the activation
+        ctx.save_for_backward(x, norm, gamma, *(() if act == "none" else (beta,)))
+        ctx.act = act
         std = torch.sqrt(var + eps)
-        ctx.save_for_backward(x, norm, gamma)
         ctx.mark_non_differentiable(mean, std)
         return y, mean, std
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gstd):
-        x, norm, gamma = ctx.saved_tensors
+        x, norm, gamma, *beta = ctx.saved_tensors
+        beta = beta[0] if beta else None
         gy = gy.contiguous()
-        dgamma, dbeta, coef = bn_bwd_reduce(gy, x, norm, gamma)
-        return bn_bwd_dx(gy, x, norm, coef), dgamma, dbeta, None
+        dgamma, dbeta, coef = bn_bwd_reduce(gy, x, norm, gamma, beta, ctx.act)
+        dx = bn_bwd_dx(gy, x, norm, coef, gamma, beta, ctx.act)
+        return dx, dgamma, dbeta, None, None
 
 
 def batch_norm_train(x, gamma, beta, running_mean, running_std, momentum=0.95,
-                     eps=1e-5, initialized=True):
-    """Train-mode BN over a 2-D (N,C) or 4-D (N,H,W,C) input. gamma, beta and
-    the running stats are 1-D (C,). Returns (y, new_running_mean,
-    new_running_std); the new stats carry no gradient. ``initialized`` is
-    False on the very first training batch, whose statistics are adopted
-    directly (the running stats passed in are then not read)."""
-    y, mean, std = _BNCore.apply(x, gamma, beta, eps)
+                     eps=1e-5, initialized=True, act="none"):
+    """Train-mode BN over a 2-D (N,C) or 4-D (N,H,W,C) input, then ``act``
+    (``"none"``, ``"relu"`` or ``"hswish"``) in the same kernels. gamma,
+    beta and the running stats are 1-D (C,). Returns (act(y),
+    new_running_mean, new_running_std); the new stats carry no gradient.
+    ``initialized`` is False on the very first training batch, whose
+    statistics are adopted directly (the running stats passed in are then
+    not read)."""
+    y, mean, std = _BNCore.apply(x, gamma, beta, eps, act)
     if initialized:
         with torch.no_grad():
             new_mean = momentum * running_mean + (1.0 - momentum) * mean

@@ -20,8 +20,10 @@ from dorknet_tpu_torch.ops.cuda.augment import (  # noqa: E402
     launch_augment_kernel)
 from dorknet_tpu_torch.ops.cuda.bn_stats import (  # noqa: E402
     batch_norm_stats, batch_norm_stats_plain)
+from dorknet_tpu_torch.ops import norm as norm_ops  # noqa: E402
+from dorknet_tpu_torch.ops.activation import hard_sigmoid  # noqa: E402
 from dorknet_tpu_torch.ops.cuda.bn_train import (  # noqa: E402
-    bn_apply, bn_apply_plain, bn_bwd_dx, bn_bwd_dx_plain, bn_bwd_reduce)
+    _dy, bn_apply, bn_apply_plain, bn_bwd_dx, bn_bwd_dx_plain, bn_bwd_reduce)
 from dorknet_tpu_torch.ops.cuda.depthwise import (  # noqa: E402
     _dw_route, _dwgrad_route, _dx_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain,
     depthwise3x3_dx, depthwise3x3_dx_plain, depthwise3x3_plain, launch_dw, launch_dx,
@@ -466,6 +468,103 @@ def test_captured_step_launches_the_bn_kernels_once_a_batch_norm(cuda, make, cla
                 counts[name] += evt.count if name in evt.key else 0
     assert np.isfinite(float(loss)) and trainer.captures == 1
     assert counts == dict.fromkeys(BN_TRAIN_KERNELS, bns)
+
+
+# the activation epilogue: the edge channels' beta (gamma 0), so that y is
+# exactly -3, 0 and 3 there
+BN_EDGES = (-3.0, 0.0, 3.0)
+
+
+def _bn_act_inputs(device, C, dtype):
+    g = torch.Generator(device=device).manual_seed(C + 7)
+    shape = (4, 24, 24, C)
+    x = (torch.randn(*shape, generator=g, device=device) * 1.5 + 0.25).to(dtype)
+    gy = torch.randn(*shape, generator=g, device=device).to(dtype)
+    gamma = 1.0 + 0.5 * torch.randn(C, generator=g, device=device)
+    beta = 4.0 * torch.rand(C, generator=g, device=device) - 2.0
+    if C >= 3:
+        gamma[-3:] = 0.0
+        beta[-3:] = torch.tensor(BN_EDGES, device=device)
+    return x, gy, gamma, beta
+
+
+@pytest.mark.parametrize("act", ["relu", "hswish"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", BN_TRAIN_WIDTHS)
+def test_bn_act_kernels_match_plain_and_the_unfused_chain(cuda, C, dtype, act):
+    """With the activation epilogue, at 4 x 24 x 24 x C: act(y) and dx
+    bit-equal to the plain versions, act(y) bit-equal to bn_apply then the
+    activation's own op on the card; dbeta and dgamma within BN_SUM_RTOL of
+    fp64 sums of the plain version's terms; two launches bit-equal; one
+    bn_apply launch counted under its activation a call."""
+    x, gy, gamma, beta = _bn_act_inputs(cuda, C, dtype)
+    mean, var = batch_norm_stats(x)
+    before = dict(bn_apply.launches_by_act)
+    (out, norm), (out2, norm2) = (bn_apply(x, mean, var, gamma, beta, 1e-5, act)
+                                  for _ in range(2))
+    out_ref, norm_ref = bn_apply_plain(x, mean, var, gamma, beta, 1e-5, act)
+    y, _ = bn_apply(x, mean, var, gamma, beta, 1e-5)
+    unfused = torch.relu(y) if act == "relu" else y * hard_sigmoid(y)
+    (dgamma, dbeta, coef), again = (bn_bwd_reduce(gy, x, norm, gamma, beta, act)
+                                    for _ in range(2))
+    dx, dx2 = (bn_bwd_dx(gy, x, norm, coef, gamma, beta, act) for _ in range(2))
+    dx_ref = bn_bwd_dx_plain(gy, x, norm, coef, gamma, beta, act)
+    M = x.numel() // C
+    g64 = _dy(gy, x, norm, gamma, beta, act).double().reshape(M, C)
+    t64 = g64 * ((x.float() - norm[0]) * norm[1]).to(dtype).double().reshape(M, C)
+    torch.cuda.synchronize()
+    assert bn_apply.launches_by_act["none"] == before["none"] + 1
+    assert bn_apply.launches_by_act[act] == before[act] + 2
+    assert out.dtype == dx.dtype == dtype
+    assert torch.equal(out, out_ref) and torch.equal(out, unfused) and torch.equal(norm, norm_ref)
+    assert torch.equal(dx, dx_ref) and torch.equal(out, out2) and torch.equal(dx, dx2)
+    assert torch.equal(norm, norm2)
+    assert all(torch.equal(a, b) for a, b in zip((dgamma, dbeta, coef), again, strict=True))
+    assert ((dbeta.double() - g64.sum(0)).abs() <= BN_SUM_RTOL * g64.abs().sum(0)).all()
+    assert ((dgamma.double() - t64.sum(0)).abs() <= BN_SUM_RTOL * t64.abs().sum(0)).all()
+
+
+@pytest.mark.parametrize("act", ["relu", "hswish"])
+def test_bn_act_gradients_match_the_unfused_chain_in_fp32(cuda, act):
+    """fp32 on the card: _BNCore with the activation against _BNCore then
+    the activation layer under autograd: the forward bit-equal, dx,
+    dgamma and dbeta within 1e-5 of each one's largest magnitude."""
+    x, gy, gamma, beta = _bn_act_inputs(cuda, 40, torch.float32)
+    grads = []
+    for fused in (True, False):
+        xt, gt, bt = (t.clone().requires_grad_() for t in (x, gamma, beta))
+        if fused:
+            out, _, _ = norm_ops._BNCore.apply(xt, gt, bt, 1e-5, act)
+        else:
+            y, _, _ = norm_ops._BNCore.apply(xt, gt, bt, 1e-5)
+            out = torch.relu(y) if act == "relu" else y * hard_sigmoid(y)
+        grads.append((out.detach(),) + torch.autograd.grad(out, (xt, gt, bt), gy))
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0][0], grads[1][0])
+    for a, b in zip(grads[0][1:], grads[1][1:], strict=True):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-7
+
+
+@pytest.mark.parametrize("make,classes,by_act", [
+    (lambda: ResNet18("dogs", num_classes=120), 120, dict(none=24, relu=10, hswish=0)),
+    (lambda: MobileNetV3Large("mnv3l", num_classes=1000), 1000,
+     dict(none=15, relu=11, hswish=20)),
+], ids=["resnet18dw", "mnv3l"])
+def test_eager_step_fuses_each_bn_activation_pair(cuda, make, classes, by_act):
+    """An eager Trainer.step (2 images of 64 px) after the adoption step:
+    bn_apply's launches by activation."""
+    np.random.seed(0)
+    net = make()
+    trainer = Trainer(net, SGDMomentum(net, 0.01, 0.9), device=cuda, cuda_graph=False)
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 3, 64, 64).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(np.eye(classes, dtype=np.float32)[[1, 2]]).to(cuda)
+    trainer.step(x, y)
+    before = dict(bn_apply.launches_by_act)
+    loss, _ = trainer.step(x, y)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss))
+    assert {k: bn_apply.launches_by_act[k] - before[k] for k in before} == by_act
 
 
 GEMM_CASES = [(64, 32, 48), (300, 512, 120), (8, 16, 128), (1, 1, 1), (129, 7, 130),
