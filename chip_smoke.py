@@ -2,7 +2,11 @@
 """Drive the PyTorch port's serving and training paths, its checkpoints and
 its flagship training script, CAM, the MNIST script and the stretch zoo
 (MobileNet-V2 and -V3-Large, EfficientNet-Lite0, ResNet-50), and its
-kernels' A/B once on one NVIDIA GPU and check them.
+hand-written kernels once on one NVIDIA GPU, and check them: results
+against plain versions and CPU twins, and launch counts. Each kernel is
+timed beside its plain version and the library's; the end-to-end rates
+of the benchmark's cells come from ``benchmark_torch/run.py``, whose
+device timing and kernel classes this script imports.
 
 Usage, from the root of a checkout, on a machine with a CUDA card, nvcc and
 nvidia-smi:
@@ -14,7 +18,7 @@ Phases (each checks its results; any failure ends the run non-zero with no
 
 1. build: compile the hand-written CUDA kernels from ``dorknet_tpu_torch/csrc``
    with nvcc (sm_90a), print the card's name and power limit and each
-   kernel's registers and spills (``ptxas -v``; the pipelined GEMM's three
+   kernel's registers and spills (``ptxas -v``; the pipelined GEMM's two
    tiles and the augmentation's band kernels among them), and require ``HGMMA``
    (wgmma) in the SASS of every tensor-core GEMM kernel (``cuobjdump -sass``);
 2. kernel vs plain: ``depthwise3x3`` against its plain PyTorch version on the
@@ -72,18 +76,14 @@ Phases (each checks its results; any failure ends the run non-zero with no
    plain versions and cuDNN's grouped-conv backward (TF32 off); the 16
    layers' device time of both routes of each (in turns: old, new, new,
    old), cuDNN's dx and dw alone and dx at each strip width, fp32 and bf16;
-   ``Trainer.step`` at batch 64 in fp32 and in bf16 flow; a
-   ``torch.profiler`` breakdown of the fp32 step by kernel class;
-9. augmentation kernel vs plain: ``augment_planes_fused`` (the band route)
-   against its plain PyTorch version on the card at the flagship's batch (60
-   precrops of 281x281 uint8 -> 225x225) in six configurations (crop random
-   or center, with and without HSV and rotation, crop only, no crop) and at
-   100x100 with a margin P = 35 (>= 33) whose table holds angles to +-90
-   degrees (the second shear of a bottom band reads the top rows): bit-equal
-   to the plain version and to the plane route, two runs bit-equal; at the
-   flagship configuration the band and plane routes in turns (events and
-   device time), the band route's tile sizes, the plain version and the
-   bound;
+9. augmentation kernel vs plain: ``augment_planes_fused`` against its plain
+   PyTorch version on the card at the flagship's batch (60 precrops of
+   281x281 uint8 -> 225x225) in six configurations (crop random or center,
+   with and without HSV and rotation, crop only, no crop) and at 100x100
+   with a margin P = 35 (>= 33) whose table holds angles to +-90 degrees
+   (the second shear of a bottom band reads the top rows): bit-equal to the
+   plain version, two runs bit-equal; at the flagship configuration the
+   kernel (events and device time), the plain version and the bound;
 10. the augmented training slice: a synthetic packed directory (2,048
     images of 281x281, 120 classes) uploaded by ``DeviceResidentDataset``
     in 64 MB chunks, with the peak device memory held to the dataset plus
@@ -96,9 +96,6 @@ Phases (each checks its results; any failure ends the run non-zero with no
     Then, under one generator seed, ``step_augmented``,
     ``train_pipeline`` + ``Trainer.step`` and ``step_augmented_indexed``
     must agree;
-10b. times of the augmented step against ``Trainer.step`` on an
-    already-augmented batch of 120, and a ``torch.profiler`` split of the
-    augmented step;
 11. GEMM: ``matmul`` and ``matmul_bn_stats`` against their plain versions
     at the flagship's 20 pointwise GEMMs and its dense head at batch 64 in
     fp32 (every one on the pipelined CUDA-core route, y bit-equal to the
@@ -107,9 +104,8 @@ Phases (each checks its results; any failure ends the run non-zero with no
     pipelined route) and bf16 (the tensor-core route); two
     ``matmul_bn_stats`` runs bit-equal; each timed against its plain version
     and cuBLAS; at each fp32 flagship shape the pipelined and classic routes'
-    device time in turns (old, new, new, old) beside cuBLAS's and each of
-    the pipelined route's three tiles, summed over the 21 GEMMs with their
-    bound shares; at the A/B's shapes both bf16
+    device time in turns (old, new, new, old) beside cuBLAS's, summed over
+    the 21 GEMMs with their bound shares; at the A/B's shapes both bf16
     routes in turns (events and device time), against their bounds and
     ``torch.mm(out_dtype=float32)`` / ``torch.matmul`` in bf16;
 12. the BN-fusion A/B (``dorknet_tpu_torch.utils.bn_fuse_ab.run``): the
@@ -227,8 +223,8 @@ Phases (each checks its results; any failure ends the run non-zero with no
     ``python -c "import chip_smoke as cs; cs.phase_build(); cs.phase_bn_act()"``.
 
 The line before the last is a JSON object of the kernels of the paths (with
-each kernel's launches by route, and both routes' times, device times
-included; the depthwise forward's entry also carries its launches in the
+the launches by route, and both routes' times, device times included, of
+each kernel that has routes; the depthwise forward's entry also carries its launches in the
 folded served run and in the reloaded programs' runs; every entry its
 launches in one replay of each captured step, by name in the profile, and
 the training kernels their wrapper launches over phase 13b's driven
@@ -259,6 +255,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from benchmark_torch.harness.timing import device_ms
+from benchmark_torch.harness.trace import ELEMENTWISE, kernel_class
+from benchmark_torch.work.counts import AUG_HSV_OPS, AUG_LERP_OPS, AUG_SHIFT_OPS, dw_bytes
+from benchmark_torch.work.peaks import FP32_FLOPS_PER_S, HBM_BYTES_PER_S
 from dorknet_tpu_torch import cam, config
 from dorknet_tpu_torch.data_loading import (DeviceResidentDataset, ImageDataLoader,
                                             ImagePreprocessor, draw_batch_params,
@@ -272,8 +272,8 @@ from dorknet_tpu_torch.network import (BatchingServer, InferenceRunner, Trainer,
                                        load_serving_artifact)
 from dorknet_tpu_torch.ops.augment import shear_pad
 from dorknet_tpu_torch.ops.cuda.augment import (
-    BAND_COLS, BAND_ROWS, _geometry, augment_param_table, augment_planes_fused,
-    augment_planes_fused_plain, launch_augment_kernel)
+    _geometry, augment_param_table, augment_planes_fused, augment_planes_fused_plain,
+    launch_augment_kernel)
 from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats, batch_norm_stats_plain
 from dorknet_tpu_torch.ops.cuda.bn_train import (bn_apply, bn_apply_plain, bn_bwd_dx,
                                                  bn_bwd_dx_plain, bn_bwd_reduce)
@@ -286,8 +286,8 @@ from dorknet_tpu_torch.ops.cuda.depthwise import (
     depthwise3x3_dx, depthwise3x3_dx_plain, depthwise3x3_plain, launch_dw, launch_dx,
     launch_forward)
 from dorknet_tpu_torch.ops.cuda.matmul import (
-    PIPELINED_TILES, _gemm_route, _gemm_tile, launch_matmul, launch_matmul_bn_stats, matmul,
-    matmul_bn_stats, matmul_bn_stats_plain, matmul_plain)
+    _gemm_route, _gemm_tile, launch_matmul, launch_matmul_bn_stats, matmul, matmul_bn_stats,
+    matmul_bn_stats_plain, matmul_plain)
 from dorknet_tpu_torch.optimisers import SGDMomentum
 from dorknet_tpu_torch.serving_artifact import deserialize
 from dorknet_tpu_torch.utils import bn_fuse_ab, torch_io
@@ -299,8 +299,6 @@ DEVICE = "cuda"
 BATCH = 64
 IMAGE = (3, 225, 225)
 NUM_CLASSES = 120
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM published device-memory bandwidth
-FP32_FLOPS_PER_S = 67e12   # H100 SXM published fp32 rate outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM published dense bf16 tensor-core rate
 TRAIN_LR = 0.05 * (BATCH / 200.0)  # the flagship example's rule
 KERNELS = (depthwise3x3, depthwise3x3_dx, depthwise3x3_dw)
@@ -342,6 +340,7 @@ JAX_TEST_GEMMS = [(64, 32, 48), (300, 512, 120), (8, 16, 128)]
 GEMM_RTOL = 2e-5  # of (|a| @ |b|) per element of y
 STATS_RTOL = 2e-5  # of sqrt(E[x^2]) for a mean, of E[x^2] for a variance
 ACC_K = 2  # micro-batches of the accumulate step
+EVENTS = dict(runs=50, warmup=10)  # measure_device_ms: the median of 50 after 10 warm-ups
 
 # the flagship example's on-device augmentation: batch 60 (120 trained
 # images a step with mixup), 225 px cut from a 281 px precrop
@@ -360,11 +359,6 @@ MIXUP = (0.0, 0.3)
 AUG_LR = 0.05 * (2 * AUG_BATCH / 200.0)  # the example's rule at 2B trained images
 DATASET_IMAGES = 2048
 CHUNK_BYTES = 64 << 20
-# fp32 operations of the arithmetic in csrc/augment_planes.cu: a pixel's HSV
-# round trip, one lerp of a shear, and one line's shift
-AUG_HSV_OPS, AUG_LERP_OPS, AUG_SHIFT_OPS = 39, 7, 6
-# the band route's tiles (output rows, columns), timed against each other in phase 9
-AUG_BAND_TILES = [(29, 57), (32, 64), (38, 75), (45, 75), (57, 75), (45, 113)]
 
 
 _START = time.perf_counter()
@@ -418,50 +412,6 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
-
-
-def cuda_ms(fn, warmup=10, iters=50):
-    """Median device time of one call of fn, from CUDA events."""
-    return measure_device_ms(fn, runs=iters, warmup=warmup)
-
-
-def device_ms(calls, repeats=5, inner=None):
-    """Device ms of one pass over ``calls`` (thunks), with the host's gaps
-    between launches taken out: a spin kernel holds the card while the host
-    queues a pass behind it, so the pass runs back to back between two CUDA
-    events; the mean of ``repeats`` passes after one warm-up pass. It counts
-    the card's own gap between queued kernels (about a µs each). A pass is
-    queued alone because the card takes only about a thousand pending
-    launches; a short list is repeated within a pass up to 20 calls (``inner`` sets
-    the repeats: 1 for a call of a hundred kernels or more, such as a forward), so the
-    events' own few µs weigh little. If the spin ended before the host had
-    queued the pass, it spins longer and measures again. (torch.profiler's
-    kernel records, summed, dropped some kernels in some profiling sessions
-    on an H100 host.)"""
-    for fn in calls:
-        fn()
-    torch.cuda.synchronize()
-    inner = inner or max(1, 20 // len(calls))
-    total, spin = 0.0, 20_000_000  # cycles: about 10 ms
-    for _ in range(repeats):
-        for _ in range(4):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            torch.cuda._sleep(spin)
-            start.record()
-            for _ in range(inner):
-                for fn in calls:
-                    fn()
-            end.record()
-            queued_ahead = not start.query()  # the spin still held the card
-            torch.cuda.synchronize()
-            if queued_ahead:
-                break
-            spin *= 4
-        else:
-            raise CheckFailed("the host could not queue {} calls ahead of the card".format(
-                len(calls)))
-        total += start.elapsed_time(end)
-    return total / repeats / inner
 
 
 def dw_inputs(N, H, C, dtype, seed):
@@ -671,8 +621,7 @@ def phase_serving(runner, X):
     serve_concurrently(runner, X)
 
 
-ELEMENTWISE = "elementwise and reductions"  # kernel_class's name for them
-DW_CUDNN = "depthwise under cuDNN (the 5x5 layers)"  # and for these
+DW_CUDNN = "depthwise under cuDNN"  # kernel_class's name for the 5x5 layers' kernels
 
 
 def forward_times(fwds, x):
@@ -684,7 +633,7 @@ def forward_times(fwds, x):
     names = list(fwds)
     ev, dev = {k: [] for k in names}, {k: [] for k in names}
     for k in names + names[::-1]:
-        ev[k].append(cuda_ms(lambda f=fwds[k]: f(x)))
+        ev[k].append(measure_device_ms(lambda f=fwds[k]: f(x), **EVENTS))
         dev[k].append(device_ms([lambda f=fwds[k]: f(x)], inner=1))
     out = {}
     for k in names:
@@ -766,7 +715,8 @@ def phase_folded(net_cpu, runner, X):
         require_vector_route("served forwards, bf16 flow", before)
         op_ab = {"op": [], "direct": []}
         for k in ("op", "direct", "direct", "op"):
-            f = lambda: cuda_ms(lambda: folded.network._test_fn(x64))  # noqa: E731
+            f = lambda: measure_device_ms(  # noqa: E731
+                lambda: folded.network._test_fn(x64), **EVENTS)
             op_ab[k].append(f() if k == "op" else direct_forward(f))
         xs, ws = dw_inputs(BATCH, 7, 512, torch.float32, seed=7)
         host = {"op": [], "direct": []}
@@ -898,19 +848,14 @@ def phase_folded(net_cpu, runner, X):
                 exported_launches={k: v["launches"] for k, v in exported.items()})
 
 
-def dw_bytes(N, H, C, stride):
-    Ho = (H - 1) // stride + 1
-    return (N * H * H * C + N * Ho * Ho * C) * 4
-
-
 def dw_bound_ms(N, H, C, stride, extra_bytes=0):
     """The least time of one depthwise 3x3 pass (forward, dx or dw) at batch
-    N in fp32: the larger of its bytes (the activation read and the one
-    written, or for dw the two read, each once) over the memory rate, and
-    its 18 flops per output element over the fp32 rate. Returns (ms, what
-    bounds it)."""
+    N in fp32 and H = W: the larger of its bytes (``dw_bytes``, plus
+    ``extra_bytes``: dw's weight gradient) over the memory rate, and its 18
+    flops per output element over the fp32 rate. Returns (ms, what bounds
+    it)."""
     Ho = (H - 1) // stride + 1
-    t_bytes = (dw_bytes(N, H, C, stride) + extra_bytes) / HBM_BYTES_PER_S
+    t_bytes = (dw_bytes(N, H, H, C, stride) + extra_bytes) / HBM_BYTES_PER_S
     t_ops = 18.0 * N * Ho * Ho * C / FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -949,14 +894,15 @@ def phase_times(runner, X):
             xcb, wcb = xb.permute(0, 3, 1, 2), wc.to(torch.bfloat16)
             turns = {"vector": [], "scalar": []}
             for route in ("scalar", "vector", "vector", "scalar"):
-                turns[route].append(cuda_ms(lambda r=route: launch_forward(x, w, stride, r)))
+                turns[route].append(measure_device_ms(
+                    lambda r=route: launch_forward(x, w, stride, r), **EVENTS))
             t = {
                 "kernel": statistics.mean(turns["vector"]),
                 "scalar": statistics.mean(turns["scalar"]),
-                "plain": cuda_ms(lambda: depthwise3x3_plain(x, w, stride)),
-                "cudnn": cuda_ms(lambda: F.conv2d(xc, wc, stride=stride, padding=1,
-                                                  groups=C)),
-                "kernel_bf16": cuda_ms(lambda: depthwise3x3(xb, w, stride)),
+                "plain": measure_device_ms(lambda: depthwise3x3_plain(x, w, stride), **EVENTS),
+                "cudnn": measure_device_ms(
+                    lambda: F.conv2d(xc, wc, stride=stride, padding=1, groups=C), **EVENTS),
+                "kernel_bf16": measure_device_ms(lambda: depthwise3x3(xb, w, stride), **EVENTS),
             }
             for route in ("vector", "scalar"):
                 calls[route] += [lambda x=x, w=w, s=stride, r=route:
@@ -972,7 +918,7 @@ def phase_times(runner, X):
                                F.conv2d(x, w, stride=s, padding=1, groups=C)] * n_layers
             calls["cudnn_bf16"] += [lambda x=xcb, w=wcb, s=stride, C=C:
                                     F.conv2d(x, w, stride=s, padding=1, groups=C)] * n_layers
-            nbytes = dw_bytes(BATCH, H, C, stride)
+            nbytes = dw_bytes(BATCH, H, H, C, stride)
             total_bytes += n_layers * nbytes
             for k in totals:
                 totals[k] += n_layers * t[k]
@@ -1017,12 +963,12 @@ def phase_times(runner, X):
     net = runner.network
     x64 = torch.from_numpy(X[:BATCH]).to(DEVICE)
     with torch.inference_mode():
-        ms32 = cuda_ms(lambda: net._test_fn(x64))
+        ms32 = measure_device_ms(lambda: net._test_fn(x64), **EVENTS)
         p32 = net._test_fn(x64).float()
         config.set_compute_dtype(torch.bfloat16)
         try:
             before = route_counts((depthwise3x3,))
-            ms16 = cuda_ms(lambda: net._test_fn(x64))
+            ms16 = measure_device_ms(lambda: net._test_fn(x64), **EVENTS)
             p16 = net._test_fn(x64).float()
             torch.cuda.synchronize()
             require_vector_route("served forward, bf16 flow", before)
@@ -1196,8 +1142,8 @@ def phase_bn_stats_times():
     for i, (H, C, n) in enumerate(FLAGSHIP_BN):
         x = bn_input((BATCH, H, H, C), torch.float32, seed=700 + i)
         xb = x.to(torch.bfloat16)
-        t = {k: cuda_ms(lambda fn=fn: fn(x)) for k, fn in fns.items()}
-        t["kernel_bf16"] = cuda_ms(lambda: batch_norm_stats(xb))
+        t = {k: measure_device_ms(lambda fn=fn: fn(x), **EVENTS) for k, fn in fns.items()}
+        t["kernel_bf16"] = measure_device_ms(lambda: batch_norm_stats(xb), **EVENTS)
         for k in totals:
             totals[k] += n * t[k]
         for k, fn in fns.items():
@@ -1246,8 +1192,8 @@ def bf16_flow(fn):
 
 
 def phase_train():
-    """Returns the trainer, the launches of each kernel over its three fp32
-    steps, and the depthwise kernels' launches by route in them."""
+    """Returns the launches of each kernel over its three fp32 steps, and
+    the depthwise kernels' launches by route in them."""
     log("== phase 7: ResNet18 trained by Trainer.step on the card (eager)")
     net = fresh_resnet18()
     trainer = Trainer(net, SGDMomentum(net, TRAIN_LR, 0.9), ema_decay=0.999, device=DEVICE,
@@ -1282,7 +1228,7 @@ def phase_train():
     require(all(bool(torch.isfinite(e).all()) for e in trainer._ema), "non-finite EMA")
     log("  3 steps at batch {}: launches forward/dx/dw/bn_stats {} (want {})".format(
         BATCH, launches, [3 * n for n in TRAIN_WANT]))
-    return trainer, launches, routes
+    return launches, routes
 
 
 def phase_train_twin():
@@ -1345,18 +1291,21 @@ def phase_bwd_times():
         g = grad_input(BATCH, H, C, stride, torch.float32, seed=500 + i)
         xb, gb, wb = x.to(torch.bfloat16), g.to(torch.bfloat16), w.to(torch.bfloat16)
         t = {
-            "dx": cuda_ms(lambda: depthwise3x3_dx(g, w, stride, H, H)),
-            "dx_plain": cuda_ms(lambda: depthwise3x3_dx_plain(g, w, stride, H, H)),
-            "dx_cudnn": cuda_ms(lambda: cudnn_grad(g, x, w, stride, [True, False, False])),
-            "dx_bf16": cuda_ms(lambda: depthwise3x3_dx(gb, w, stride, H, H)),
-            "dw": cuda_ms(lambda: depthwise3x3_dw(x, g, stride)),
-            "dw_plain": cuda_ms(lambda: depthwise3x3_dw_plain(x, g, stride)),
-            "dw_cudnn": cuda_ms(lambda: cudnn_grad(g, x, w, stride, [False, True, False])),
-            "dw_bf16": cuda_ms(lambda: depthwise3x3_dw(xb, gb, stride)),
+            "dx": measure_device_ms(lambda: depthwise3x3_dx(g, w, stride, H, H), **EVENTS),
+            "dx_plain": measure_device_ms(lambda: depthwise3x3_dx_plain(g, w, stride, H, H),
+                                          **EVENTS),
+            "dx_cudnn": measure_device_ms(
+                lambda: cudnn_grad(g, x, w, stride, [True, False, False]), **EVENTS),
+            "dx_bf16": measure_device_ms(lambda: depthwise3x3_dx(gb, w, stride, H, H), **EVENTS),
+            "dw": measure_device_ms(lambda: depthwise3x3_dw(x, g, stride), **EVENTS),
+            "dw_plain": measure_device_ms(lambda: depthwise3x3_dw_plain(x, g, stride), **EVENTS),
+            "dw_cudnn": measure_device_ms(
+                lambda: cudnn_grad(g, x, w, stride, [False, True, False]), **EVENTS),
+            "dw_bf16": measure_device_ms(lambda: depthwise3x3_dw(xb, gb, stride), **EVENTS),
         }
         for k in keys:
             totals[k] += n * t[k]
-        nbytes = dw_bytes(BATCH, H, C, stride)
+        nbytes = dw_bytes(BATCH, H, H, C, stride)
         log("  {}x{}x{} s{} (x{}): dx {:.4f} ms ({:.0f} GB/s), plain {:.4f}, cuDNN {:.4f}, "
             "bf16 {:.4f} | dw {:.4f} ms ({:.0f} GB/s), plain {:.4f}, cuDNN {:.4f}, "
             "bf16 {:.4f}".format(
@@ -1411,33 +1360,6 @@ def phase_bwd_times():
     return totals
 
 
-def kernel_class(name):
-    n = name.lower()
-    if "augment_band" in n or "augment_rotate" in n or "augment_pointwise" in n:
-        return "augmentation kernel"
-    if "gather" in n or "indexselect" in n:
-        return "gathers (dataset rows, mixup partners)"
-    if "depthwise3x3_dx" in n:
-        return "depthwise dx"
-    if "depthwise3x3_dw" in n:
-        return "depthwise dw"
-    if "depthwise3x3_fwd" in n:
-        return "depthwise forward"
-    if "bn_stats_partial" in n or "stats_finish" in n:
-        return "batch-norm statistics kernel"
-    if "matmul_kernel" in n or "matmul_tc_kernel" in n:
-        return "hand-written GEMM"
-    if "conv2d_c1_k1" in n:  # cuDNN's depthwise kernel, by its name on an H100
-        return DW_CUDNN
-    if "gemm" in n or "sm90_xmma" in n or "cutlass" in n or "cublas" in n:
-        return "GEMM"
-    if "conv" in n or "cudnn" in n or "dgrad" in n or "wgrad" in n:
-        return "cuDNN conv"
-    if "multi_tensor_apply" in n:
-        return "optimiser, clip and EMA (_foreach)"
-    return "elementwise and reductions"
-
-
 def device_profile(fn, steps=3):
     """torch.profiler over ``steps`` calls of fn. Returns the host ms a call
     with the profiler on, and the device ms a call by kernel class and by
@@ -1461,39 +1383,6 @@ def device_profile(fn, steps=3):
         by_class[cls] = by_class.get(cls, 0.0) + ms
         by_name[evt.key] = by_name.get(evt.key, 0.0) + ms
     return span_ms / steps, by_class, by_name, n_kernels // steps
-
-
-def phase_train_times(trainer):
-    """Trainer.step at batch 64 in fp32 and bf16 flow; returns the fp32 ms."""
-    log("== phase 8b: Trainer.step times (CUDA events around the step, median of 10 "
-        "after 3 warm-ups; batch already on the card)")
-    log("card:", card_line())
-    X, y = train_batches(4, 1, BATCH)
-    x = torch.from_numpy(X[0]).to(DEVICE)
-    yt = torch.from_numpy(y[0]).to(DEVICE)
-    ms32 = cuda_ms(lambda: trainer.step(x, yt), warmup=3, iters=10)
-    before = route_counts()
-    ms16 = bf16_flow(lambda: cuda_ms(lambda: trainer.step(x, yt), warmup=3, iters=10))
-    loss16 = float(bf16_flow(lambda: trainer.step(x, yt))[0])
-    require_vector_route("Trainer.step, bf16 flow", before, KERNELS)
-    require(np.isfinite(loss16), "non-finite bf16-flow loss")
-    log("  Trainer.step, batch {}: fp32 {:.3f} ms = {:.0f} img/s; bf16 flow {:.3f} ms = "
-        "{:.0f} img/s (loss {:.4f})".format(BATCH, ms32, BATCH / ms32 * 1e3, ms16,
-                                            BATCH / ms16 * 1e3, loss16))
-
-    per_step, by_class, by_name, n_kernels = device_profile(lambda: trainer.step(x, yt))
-    busy = sum(by_class.values())
-    if busy == 0.0:
-        log("  profiler: no device time recorded")
-        return ms32
-    log("  profiler, fp32 step (host clock with the profiler on: {:.3f} ms a step): {} "
-        "kernels a step, busy {:.3f} ms, idle share {:.1%}".format(
-            per_step, n_kernels, busy, max(0.0, 1.0 - busy / per_step)))
-    for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        log("    {:<30} {:8.3f} ms  {:5.1%}".format(cls, ms, ms / busy))
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        log("    top: {:8.3f} ms  {}".format(ms, name[:110]))
-    return ms32
 
 
 def precrop_batch(B, H, W, seed):
@@ -1543,12 +1432,11 @@ def aug_case(x, cfg, seed, out_hw=AUG_OUT, P=None):
 
 def phase_augment_vs_plain():
     """Returns the flagship configuration's numbers: max |err| in uint8
-    steps, pixels off, the band route's ms and device ms, the plane route's,
-    plain ms, bound ms, what bounds it."""
-    log("== phase 9: augment_planes_fused kernel vs plain on the card; the band route "
-        "against the plane route")
-    log("  batch {} of {}x{} uint8 -> {}; limits: bit-equal to the plain version and to the "
-        "plane route, two runs bit-equal".format(AUG_BATCH, PRECROP, PRECROP, AUG_OUT))
+    steps, pixels off, the kernel's ms and device ms, plain ms, bound ms,
+    what bounds it."""
+    log("== phase 9: augment_planes_fused kernel vs plain on the card")
+    log("  batch {} of {}x{} uint8 -> {}; limits: bit-equal to the plain version, two runs "
+        "bit-equal".format(AUG_BATCH, PRECROP, PRECROP, AUG_OUT))
     x = precrop_batch(AUG_BATCH, PRECROP, PRECROP, seed=9)
     result = None
     # the six configurations, and the flagship's at 100 px with a +-40 degree
@@ -1564,52 +1452,35 @@ def phase_augment_vs_plain():
         got = launch_augment_kernel(xc, table, (oh, ow), hsv_on, P) if P_given else \
             augment_planes_fused(xc, params, AUG_OUT, **cfg)
         again = launch_augment_kernel(xc, table, (oh, ow), hsv_on, P)
-        plane = launch_augment_kernel(xc, table, (oh, ow), hsv_on, P, route="plane")
         want = augment_planes_fused_plain(xc, table, (oh, ow), hsv_on, P, flip_on)
         torch.cuda.synchronize()
         require(got.dtype == torch.uint8 and got.shape == want.shape,
                 "output {} {}".format(got.dtype, tuple(got.shape)))
         diff = (got.int() - want.int()).abs()
         err, off = diff.max().item(), int((diff > 0).sum().item())
-        same, same_plane = bool(torch.equal(got, again)), bool(torch.equal(got, plane))
+        same = bool(torch.equal(got, again))
         log("  {:<12} -> {}x{}, P {}: max|err| {} steps, {} of {} pixels off ({:.5%}), repeat "
-            "bit-equal {}, plane route bit-equal {}".format(
-                name, oh, ow, P, err, off, diff.numel(), off / diff.numel(), same, same_plane))
-        require(off == 0, "augment_planes_fused's band route differs from its plain version")
+            "bit-equal {}".format(name, oh, ow, P, err, off, diff.numel(), off / diff.numel(),
+                                  same))
+        require(off == 0, "augment_planes_fused differs from its plain version")
         require(same, "two augment_planes_fused runs differ")
-        require(same_plane, "the band route differs from the plane route")
         if name == "all":
-            def run(route, tile=None):
-                return launch_augment_kernel(x, table, (oh, ow), hsv_on, P, route=route,
-                                             tile=tile)
+            def run():
+                return launch_augment_kernel(x, table, (oh, ow), hsv_on, P)
 
-            times = {r: [] for r in ("plane", "band")}
-            for r in ("plane", "band", "band", "plane"):  # old, new, new, old
-                times[r].append((cuda_ms(lambda: run(r)), device_ms([lambda: run(r)])))
-            (ms, dev), (old_ms, old_dev) = (
-                tuple(statistics.mean(t[i] for t in times[r]) for i in (0, 1))
-                for r in ("band", "plane"))
-            plain_ms = cuda_ms(lambda: augment_planes_fused_plain(x, table, (oh, ow), hsv_on,
-                                                                  P, flip_on))
+            ms, dev = measure_device_ms(run, **EVENTS), device_ms([run])
+            plain_ms = measure_device_ms(
+                lambda: augment_planes_fused_plain(x, table, (oh, ow), hsv_on, P, flip_on),
+                **EVENTS)
             bound, by, n_bytes = augment_bound_ms(AUG_BATCH, PRECROP, PRECROP, oh, ow, P,
                                                   cfg["crop_mode"] is not None)
-            variants = {tile: device_ms([lambda tile=tile: run("band", tile)])
-                        for tile in AUG_BAND_TILES}
             result = dict(max_abs_err=err, pixels_off=off, ms=ms, device_ms=dev,
-                          old_route_ms=old_ms, old_route_device_ms=old_dev, plain_ms=plain_ms,
-                          bound_ms=bound, bound_by=by,
-                          band_tiles_device_ms={"{}x{}".format(*k): v
-                                                for k, v in variants.items()})
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=by)
             log("  times (CUDA events, median of 50 after 10 warm-ups; device time queued "
-                "behind a spin kernel, mean of 5; routes in turns plane, band, band, plane), "
-                "card: {}".format(card_line()))
-            log("  flagship configuration: band route {:.4f} ms (device {:.4f}, {:.1%} of the "
-                "bound), plane route {:.4f} ms (device {:.4f}), plain {:.4f} ms; bound {:.4f} "
-                "ms ({}; {:.1f} MB at 3.35 TB/s)".format(
-                    ms, dev, bound / dev, old_ms, old_dev, plain_ms, bound, by, n_bytes / 1e6))
-            log("  band route tiles (rows x columns: device ms; the default {}x{}): {}".format(
-                BAND_ROWS, BAND_COLS,
-                {k: round(v, 4) for k, v in result["band_tiles_device_ms"].items()}))
+                "behind a spin kernel, mean of 5), card: {}".format(card_line()))
+            log("  flagship configuration: kernel {:.4f} ms (device {:.4f}, {:.1%} of the "
+                "bound), plain {:.4f} ms; bound {:.4f} ms ({}; {:.1f} MB at 3.35 TB/s)".format(
+                    ms, dev, bound / dev, plain_ms, bound, by, n_bytes / 1e6))
     return result
 
 
@@ -1677,8 +1548,8 @@ AUG_KERNELS = (augment_planes_fused,) + TRAIN_KERNELS
 
 
 def phase_aug_train(dd):
-    """Returns the trainer, the launches of the five kernels over its eight
-    steps, and the rows of its last step."""
+    """Returns the launches of the five kernels over its eight steps, and
+    the rows of its last step."""
     log("== phase 10: ResNet18 trained by Trainer.step_augmented_indexed on the card (eager)")
     trainer = fresh_aug_trainer(cuda_graph=False)
     gen = torch.Generator(device=DEVICE).manual_seed(10)
@@ -1710,10 +1581,6 @@ def phase_aug_train(dd):
     require(bool(torch.isfinite(losses).all()) and tuple(preds.shape) == (3, 2 * AUG_BATCH),
             "multi-step losses or preds")
     launches = [k.launches for k in AUG_KERNELS]
-    aug_routes = dict(augment_planes_fused.launches_by_route)
-    log("  augmentation launches by route {}".format(aug_routes))
-    require(aug_routes["band"] == launches[0] and aug_routes["plane"] == 0,
-            "an augmented step missed the band route")
     require_vector_route("augmented training run", kernels=KERNELS)
     before, routes = [k.launches for k in AUG_KERNELS], route_counts()
     loss16, _ = bf16_flow(lambda: trainer.step_augmented_indexed(
@@ -1728,7 +1595,7 @@ def phase_aug_train(dd):
             "non-finite parameters")
     log("  8 steps of {} trained images: launches augment/forward/dx/dw/bn_stats {}".format(
         2 * AUG_BATCH, launches))
-    return trainer, launches, aug_routes, rows_stack[-1]
+    return launches, rows_stack[-1]
 
 
 def phase_aug_equal(dd, rows):
@@ -1763,64 +1630,15 @@ def phase_aug_equal(dd, rows):
         require(rel <= 1e-6 and worst <= 1e-6, "{} disagrees with step_augmented".format(how))
 
 
-def phase_aug_times(trainer, dd, rows):
-    """Returns the augmented step's ms."""
-    log("== phase 10b: augmented step times (CUDA events around the step; the mean of two "
-        "turns, each the median of 10 after 3 warm-ups)")
-    log("card:", card_line())
-    aug = dict(AUG_CFG, mixup=MIXUP)
-    gen = torch.Generator(device=DEVICE).manual_seed(11)
-
-    def aug_step():
-        return trainer.step_augmented_indexed(gen, dd.images, dd.labels, rows, AUG_OUT,
-                                              dd.num_classes, **aug)
-
-    X = dd.images.index_select(0, torch.from_numpy(rows).long().to(DEVICE))
-    y = F.one_hot(dd.labels[torch.from_numpy(rows).long().to(DEVICE)].long(),
-                  dd.num_classes).float()
-    x, yy = train_pipeline(gen, X, y, AUG_OUT, output_layout="NHWC", **aug)
-    nhwc = Trainer(trainer.network, SGDMomentum(trainer.network, AUG_LR, 0.9),
-                   input_layout="NHWC", device=DEVICE, cuda_graph=False)
-    # in turns (augmented, plain, plain, augmented): the host's pace drifts
-    times = {"aug": [], "plain": []}
-    for which in ("aug", "plain", "plain", "aug"):
-        fn = aug_step if which == "aug" else (lambda: nhwc.step(x, yy))
-        times[which].append(cuda_ms(fn, warmup=3, iters=10))
-    ms_aug, ms_plain = (statistics.mean(times[k]) for k in ("aug", "plain"))
-    n = 2 * AUG_BATCH
-    log("  step_augmented_indexed, {} trained images: {:.3f} ms = {:.0f} img/s (turns {}); "
-        "Trainer.step on the augmented batch: {:.3f} ms = {:.0f} img/s (turns {}); the input "
-        "path adds {:.3f} ms".format(
-            n, ms_aug, n / ms_aug * 1e3, [round(t, 3) for t in times["aug"]], ms_plain,
-            n / ms_plain * 1e3, [round(t, 3) for t in times["plain"]], ms_aug - ms_plain))
-
-    per_step, by_class, by_name, n_kernels = device_profile(aug_step)
-    busy = sum(by_class.values())
-    if busy == 0.0:
-        log("  profiler: no device time recorded")
-        return ms_aug
-    log("  profiler, augmented step (host clock with the profiler on: {:.3f} ms a step): {} "
-        "kernels a step, busy {:.3f} ms, idle share {:.1%}".format(
-            per_step, n_kernels, busy, max(0.0, 1.0 - busy / per_step)))
-    for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        log("    {:<38} {:8.3f} ms  {:5.1%}".format(cls, ms, ms / busy))
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
-        if kernel_class(name) in ("augmentation kernel", "gathers (dataset rows, mixup partners)"):
-            log("    input path: {:8.3f} ms  {}".format(ms, name[:100]))
-    return ms_aug
-
-
 def phase_aug_slice(path):
-    """Phases 10 and 10b over a dataset packed at ``path``; returns the five
-    kernels' launches over the eight steps of phase 10, the augmentation
-    kernel's launches by route, and the device-resident dataset."""
+    """Phase 10 over a dataset packed at ``path``; returns the five kernels'
+    launches over its eight steps, and the device-resident dataset."""
     log("== phase 10: the device-resident dataset")
     write_dataset(path)
     dd = upload_dataset(path)
-    trainer, launches, aug_routes, rows = phase_aug_train(dd)
+    launches, rows = phase_aug_train(dd)
     phase_aug_equal(dd, rows)
-    phase_aug_times(trainer, dd, rows)
-    return launches, aug_routes, dd
+    return launches, dd
 
 
 def gemm_inputs(M, K, N, dtype, seed):
@@ -1879,7 +1697,7 @@ def route_times(fn, routes=("cuda_core", "tensor_core")):
     turns taken old, new, new, old."""
     ev, dev = {r: [] for r in routes}, {r: [] for r in routes}
     for r in routes + routes[::-1]:
-        ev[r].append(cuda_ms(lambda: fn(r)))
+        ev[r].append(measure_device_ms(lambda: fn(r), **EVENTS))
         dev[r].append(device_ms([lambda: fn(r)]))
     return {r: (statistics.mean(ev[r]), statistics.mean(dev[r])) for r in routes}
 
@@ -1892,26 +1710,18 @@ def fp32_route_times(a, b, out_dtype, n, mm_bound, st_bound):
     mm = route_times(lambda r: launch_matmul(a, b, r), routes)
     st = route_times(lambda r: launch_matmul_bn_stats(a, b, out_dtype, r), routes)
     lib = device_ms([lambda: torch.matmul(a, b)])
-    tiles = {"{}x{}".format(*tile): device_ms([lambda tile=tile: launch_matmul(
-        a, b, routes[1], tile)]) for tile in PIPELINED_TILES}
-    stats_tiles = {"{}x{}".format(*tile): device_ms([lambda tile=tile: launch_matmul_bn_stats(
-        a, b, out_dtype, routes[1], tile)]) for tile in PIPELINED_TILES}
     row = dict(device_ms=mm[routes[1]][1], old_route_device_ms=mm[routes[0]][1],
                ms=mm[routes[1]][0], old_route_ms=mm[routes[0]][0], library_device_ms=lib,
                bound_ms=mm_bound, stats_device_ms=st[routes[1]][1],
                stats_old_route_device_ms=st[routes[0]][1], stats_bound_ms=st_bound,
                tile="{}x{}".format(*_gemm_tile(*a.shape, b.shape[1])),
-               stats_tile="{}x{}".format(*_gemm_tile(*a.shape, b.shape[1], stats=True)),
-               tiles_device_ms=tiles, stats_tiles_device_ms=stats_tiles)
+               stats_tile="{}x{}".format(*_gemm_tile(*a.shape, b.shape[1], stats=True)))
     log("    x{} layers, device ms: matmul pipelined {:.4f} ({:.1%} of the bound), cuda_core "
         "{:.4f}, cuBLAS {:.4f}; matmul_bn_stats pipelined {:.4f} ({:.1%}), cuda_core {:.4f}; "
-        "bound {:.4f} / {:.4f}; by tile, matmul (the rule's {}) {}, matmul_bn_stats (the "
-        "rule's {}) {}".format(
+        "bound {:.4f} / {:.4f}".format(
             n, row["device_ms"], mm_bound / row["device_ms"], row["old_route_device_ms"], lib,
             row["stats_device_ms"], st_bound / row["stats_device_ms"],
-            row["stats_old_route_device_ms"], mm_bound, st_bound, row["tile"],
-            {k: round(v, 4) for k, v in tiles.items()}, row["stats_tile"],
-            {k: round(v, 4) for k, v in stats_tiles.items()}))
+            row["stats_old_route_device_ms"], mm_bound, st_bound))
     return row
 
 
@@ -1984,11 +1794,13 @@ def phase_gemm():
             del y_old, ys_old
         del scale, ys_limit, ref, ps
         t = {
-            "matmul": cuda_ms(lambda: matmul(a, b)),
-            "stats": cuda_ms(lambda: matmul_bn_stats(a, b, out_dtype=out_dtype)),
-            "plain": cuda_ms(lambda: matmul_plain(a, b)),
-            "stats_plain": cuda_ms(lambda: matmul_bn_stats_plain(a, b, out_dtype)),
-            "cublas": cuda_ms(lambda: torch.matmul(a, b)),
+            "matmul": measure_device_ms(lambda: matmul(a, b), **EVENTS),
+            "stats": measure_device_ms(lambda: matmul_bn_stats(a, b, out_dtype=out_dtype),
+                                       **EVENTS),
+            "plain": measure_device_ms(lambda: matmul_plain(a, b), **EVENTS),
+            "stats_plain": measure_device_ms(lambda: matmul_bn_stats_plain(a, b, out_dtype),
+                                             **EVENTS),
+            "cublas": measure_device_ms(lambda: torch.matmul(a, b), **EVENTS),
         }
         mm_bound, mm_by = gemm_bound_ms(M, K, N, in_dtype, torch.float32, False)
         st_bound, st_by = gemm_bound_ms(M, K, N, in_dtype, out_dtype, True)
@@ -2022,7 +1834,8 @@ def phase_gemm():
             rows = []
             if out_dtype == torch.bfloat16:  # matmul's y is fp32 whatever the row
                 has_out = cublas_fp32_out(a, b) is not None
-                lib = (cuda_ms(lambda: torch.mm(a, b, out_dtype=torch.float32)),
+                lib = (measure_device_ms(lambda: torch.mm(a, b, out_dtype=torch.float32),
+                                         **EVENTS),
                        device_ms([lambda: torch.mm(a, b, out_dtype=torch.float32)])) \
                     if has_out else (None, None)
                 rows.append(("matmul", "y float32", mm_bound, mm_by, lib,
@@ -2053,7 +1866,7 @@ def phase_gemm():
         "{:.4f} ms, cuBLAS {:.4f} ms".format(device["matmul"], device["stats"],
                                             device["stats_plain"], device["cublas"]))
     sums = {k: sum(r["layers"] * r[k] for r in per_shape) for k in per_shape[0]
-            if k.endswith("_ms") and not k.endswith("tiles_device_ms")}
+            if k.endswith("_ms")}
     log("  the 21 fp32 GEMMs by shape, summed (device ms, routes in turns cuda_core, "
         "cuda_core_pipelined, cuda_core_pipelined, cuda_core): matmul pipelined {:.4f} ({:.1%} "
         "of the {:.4f} bound, {:.3f}x cuBLAS's {:.4f}), cuda_core {:.4f}; matmul_bn_stats "
@@ -2167,7 +1980,7 @@ def phase_accumulate():
             "non-finite parameters")
     xs = torch.from_numpy(X[:ACC_K]).to(DEVICE)
     ys = torch.from_numpy(y[:ACC_K]).to(DEVICE)
-    ms = cuda_ms(lambda: trainer.accumulate_step(xs, ys), warmup=2, iters=5)
+    ms = measure_device_ms(lambda: trainer.accumulate_step(xs, ys), runs=5, warmup=2)
     log("  accumulate_step, {} x {} images on the card (CUDA events, median of 5 after 2): "
         "{:.3f} ms = {:.0f} img/s".format(ACC_K, BATCH, ms, ACC_K * BATCH / ms * 1e3))
     return launches[0]
@@ -2230,25 +2043,41 @@ class Agreement:
         return held
 
 
+PROFILED_CALL = "chip_smoke.profiled_call"
+
+
 def replay_profile(fn, names):
-    """torch.profiler over one call of fn: the count of each kernel name in
-    ``names`` (by prefix), every kernel, busy ms and the host ms."""
+    """torch.profiler over two calls of fn, read for the second: the count
+    of each kernel name in ``names`` (by prefix), every kernel, busy ms and
+    the host ms of that call. Late in this script the profiler loses the
+    first few kernels of the first graph replay it records (one batch
+    norm's forward of MobileNet-V2's step: 51 of its 52 in one replay, 103
+    in two), so the first call only starts the profile. The card is
+    synchronised between the two, so a kernel belongs to the second call
+    when it starts after that call's host range does."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        span_ms = (time.perf_counter() - t0) * 1e3
+        with torch.profiler.record_function(PROFILED_CALL):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            span_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == PROFILED_CALL and e.device_type == torch.autograd.DeviceType.CPU)
     counts, total, busy = dict.fromkeys(names, 0), 0, 0.0
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+    for evt in events:
+        if (evt.device_type != torch.autograd.DeviceType.CUDA or evt.name == PROFILED_CALL
+                or evt.time_range.start < start):
             continue
-        total += evt.count
-        busy += evt.device_time_total / 1e3
+        total += 1
+        busy += evt.time_range.elapsed_us() / 1e3
         for name in names:
-            if name in evt.key:
-                counts[name] += evt.count
+            if name in evt.name:
+                counts[name] += 1
     return counts, total, busy, span_ms
 
 
@@ -2271,7 +2100,7 @@ def step_times(pair, fn, what, n_images):
     times = {"eager": [], "captured": []}
     for which in ("eager", "captured", "captured", "eager"):
         t = pair[which == "eager"]
-        times[which].append(cuda_ms(lambda: fn(t), warmup=2, iters=10))
+        times[which].append(measure_device_ms(lambda: fn(t), runs=10, warmup=2))
     for which in ("eager", "captured"):
         t = pair[which == "eager"]
         ms = statistics.mean(times[which])
@@ -2437,11 +2266,12 @@ def captured_parity(dd, held):
     held["accumulate_step"] = agree.verdict("accumulate_step, K={} x {}, {} replays".format(
         ACC_K, BATCH, GRAPH_STEPS))
     # --- kernel proof: a profile of one replay, every hand kernel of the
-    # step by name and no GEMM kernel (the eager twin takes the same step, so
-    # the two stay equal)
+    # step by name and no GEMM kernel (the profile takes two steps, and the
+    # eager twin the same two, so the two stay equal)
     replay = {"step": require_replay_kernels(
         "Trainer.step", lambda: graphed.step(xs[0], ys[0]), REPLAY_WANT)}
-    step_pair[1].step(xs[0], ys[0])
+    for _ in range(2):
+        step_pair[1].step(xs[0], ys[0])
     replay["step_augmented_indexed"] = require_replay_kernels(
         "step_augmented_indexed", lambda: aug_step(aug_pair[0], rows[0]),
         (("augment_band_kernel", 1),) + REPLAY_WANT)
@@ -2945,7 +2775,7 @@ def phase_cam(net_cpu, net_gpu, tmp):
         # CAM over 16 images queues some 3,000 kernels, more than the card
         # takes pending behind device_ms's spin: its device ms is the
         # profiler's busy time
-        events = cuda_ms(lambda: fn(net_gpu, xg), warmup=2, iters=10)
+        events = measure_device_ms(lambda: fn(net_gpu, xg), runs=10, warmup=2)
         span, by_class, _, n_kernels = device_profile(lambda: fn(net_gpu, xg), steps=2)
         busy = sum(by_class.values())
         numbers[name] = dict(images=n, events_ms=events, busy_ms=busy, kernels=n_kernels,
@@ -3116,7 +2946,7 @@ def phase_zoo_captured(z, label, full=True):
             "the captured trainer's eager steps")
     pool = pool_bytes(captured._pool) / 1e6
     if not full:
-        ms = cuda_ms(lambda: captured.step(x, yy), warmup=2, iters=10)
+        ms = measure_device_ms(lambda: captured.step(x, yy), runs=10, warmup=2)
         log("  captured step: {:.3f} ms = {:.0f} img/s; graph pool {:.1f} MB; capture {:.3f} "
             "s".format(ms, BATCH / ms * 1e3, pool, captured.capture_seconds))
         return run, {}, dict(captured_ms=ms, pool_mb=pool,
@@ -3636,14 +3466,12 @@ def main():
     bwd_err = phase_bwd_vs_plain()
     bn_err = phase_bn_stats_vs_plain()
     bn = phase_bn_stats_times()
-    trainer, launches, train_routes = phase_train()
+    launches, train_routes = phase_train()
     phase_train_twin()
     bwd = phase_bwd_times()
-    phase_train_times(trainer)
-    del trainer
     aug = phase_augment_vs_plain()
     with tempfile.TemporaryDirectory() as tmp:
-        aug_launches, aug_routes, dd = phase_aug_slice(os.path.join(tmp, "packed"))
+        aug_launches, dd = phase_aug_slice(os.path.join(tmp, "packed"))
         mm, mm_stats = phase_gemm()
         ab_launches, ab_routes = phase_bn_fuse_ab()
         acc_launches = phase_accumulate()
@@ -3738,7 +3566,7 @@ def main():
         dict(name="augment_planes_fused", route="cuda",
              source="dorknet_tpu_torch/csrc/augment_planes.cu",
              replaces="dorknet_tpu/ops/pallas/augment.py:205", launches=aug_launches[0],
-             launches_by_route=aug_routes, library_ms=None,
+             library_ms=None,
              captured_replay_launches=replayed("augment_band_kernel"),
              captured_run_launches=captured_run(0), phase14_launches=phase14(0), **aug),
         dict(name="batch_norm_stats", route="cuda", source="dorknet_tpu_torch/csrc/bn_stats.cu",

@@ -35,39 +35,30 @@
 // and rounds one, the HSV of a pixel takes two correctly rounded divisions,
 // and a rotated output byte costs more than three lerps.
 //
-// Two designs with rotation, chosen by the caller (ops/cuda/augment.py) and
-// passed as `route`:
-//
-// - 1, "band" (augment_band_kernel), the one the port runs. A block owns a
-//   tile of output rows x columns (a band of rows cut into column chunks) of
-//   one image, all three channels, so the grid holds many short blocks
-//   (900 at the flagship's size, tiles of 45 x 75) and four fit an SM.
-//   Shear 1 is row-local, shear 2 column-local, shear 3 row-local, so going
-//   back from the tile gives the windows it needs: the columns J of shear
-//   2's output that shear 3 reads, the padded rows R that shear 2 reads
-//   there, the crop columns K that shear 1 reads on those rows. Every shift
-//   is monotone along its lines, so the ends of a run bound a window; each
-//   window is a run of a circular index space (reads wrap modulo the padded
-//   length, which puts the top rows of the image in a bottom band's R once
-//   t_hi > 2P and a column's shift reaches 3P). The block stages only R x J
-//   after shear 1: each pixel of K x R goes through HSV once for its three
-//   channels (the plane route recomputes it in each channel's block), and
-//   the halo beyond the tile is a few rows and columns, not the whole
-//   plane. Crop rows come in as aligned 4-byte words and are de-interleaved
-//   from shared memory. Loops run over rows, then columns: no division, and
-//   a read's slot is its loop index plus a constant of its line, so only
-//   the staging wraps an index (by compare and subtract), once a staged
-//   element. Bytes become floats and back without the conversion unit
-//   (u8_to_f32, floor_int). The windows' capacities come from
-//   the largest coefficient the margin P allows; a tile whose windows exceed
-//   them (a table with angles beyond P's range) computes each output byte
-//   from the input through the three shears instead, so every size runs.
-// - 0, "plane" (augment_rotate_kernel), kept to be timed against it: one
-//   block per (image, channel) holds the whole channel in shared memory
-//   through the three shears, in two uint8 stage buffers of oh x (ow + 2P)
-//   (130,050 bytes at the flagship's size, P = 32), so only oh x ow up to
-//   about 227 KB / 2 fits, and one block fills an SM: 180 blocks run in two
-//   waves.
+// With rotation (augment_band_kernel): a block owns a tile of output rows x
+// columns (a band of rows cut into column chunks) of one image, all three
+// channels, so the grid holds many short blocks (900 at the flagship's
+// size, tiles of 45 x 75) and four fit an SM. Shear 1 is row-local, shear 2
+// column-local, shear 3 row-local, so going back from the tile gives the
+// windows it needs: the columns J of shear 2's output that shear 3 reads,
+// the padded rows R that shear 2 reads there, the crop columns K that
+// shear 1 reads on those rows. Every shift is monotone along its lines, so
+// the ends of a run bound a window; each window is a run of a circular
+// index space (reads wrap modulo the padded length, which puts the top rows
+// of the image in a bottom band's R once t_hi > 2P and a column's shift
+// reaches 3P). The block stages only R x J after shear 1: each pixel of
+// K x R goes through HSV once for its three channels, and the halo beyond
+// the tile is a few rows and columns, not the whole plane, so a block's
+// shared memory grows with the tile and the rotation's reach, not with the
+// output (a 320 x 320 output rotates). Crop rows come in as aligned 4-byte
+// words and are de-interleaved from shared memory. Loops run over rows,
+// then columns: no division, and a read's slot is its loop index plus a
+// constant of its line, so only the staging wraps an index (by compare and
+// subtract), once a staged element. Bytes become floats and back without
+// the conversion unit (u8_to_f32, floor_int). The windows' capacities come
+// from the largest coefficient the margin P allows; a tile whose windows
+// exceed them (a table with angles beyond P's range) computes each output
+// byte from the input through the three shears instead, so every size runs.
 //
 // A block reads its crop at its origin directly (the TPU kernel barrel-
 // shifts it, because Mosaic rejects unaligned dynamic reads). Each line's
@@ -84,8 +75,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int kRotateThreads = 1024;
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
     return fminf(fmaxf(v, lo), hi);
@@ -231,88 +220,6 @@ augment_pointwise_kernel(const uint8_t* __restrict__ img, const float* __restric
     }
 }
 
-// With rotation: one block per (image, channel), blockIdx.x = n * 3 + ch.
-// Shared memory: stage buffers sa and sb of oh x Wp bytes (Wp = ow + 2P),
-// then the per-line shifts: int t0 and float frac for the oh rows (shears
-// 1 and 3 use the same row coordinates) and the Wp columns (shear 2).
-template <bool HSV>
-__global__ void __launch_bounds__(kRotateThreads)
-augment_rotate_kernel(const uint8_t* __restrict__ img, const float* __restrict__ table,
-                      uint8_t* __restrict__ out, int H, int W, int oh, int ow, int P,
-                      float t_hi) {
-    extern __shared__ __align__(16) uint8_t smem[];
-    const int Wp = ow + 2 * P;
-    const int Hp = oh + 2 * P;
-    const int n = blockIdx.x / 3;
-    const int ch = blockIdx.x - 3 * n;
-    uint8_t* sa = smem;
-    uint8_t* sb = smem + oh * Wp;
-    int* row_t0 = reinterpret_cast<int*>(smem + ((2 * oh * Wp + 3) & ~3));
-    float* row_frac = reinterpret_cast<float*>(row_t0 + oh);
-    int* col_t0 = reinterpret_cast<int*>(row_frac + oh);
-    float* col_frac = reinterpret_cast<float*>(col_t0 + Wp);
-
-    const float* prm = table + (int64_t)n * 8;
-    const int r0 = (int)prm[0], c0 = (int)prm[1];
-    const float sh = prm[2], ss = prm[3], sv = prm[4];
-    const float a = prm[5], b = prm[6];
-    const bool flip = prm[7] != 0.f;
-    const float cy = 0.5f * (float)oh, cx = 0.5f * (float)ow;
-    const uint8_t* src = img + (int64_t)n * H * W * 3;
-
-    // the shifts: rows y (coordinate y - cy), columns j (coordinate j - P - cx)
-    for (int i = threadIdx.x; i < oh + Wp; i += blockDim.x) {
-        if (i < oh) {
-            line_shift(a, __fsub_rn((float)i, cy), P, t_hi, row_t0 + i, row_frac + i);
-        } else {
-            const int j = i - oh;
-            line_shift(b, __fsub_rn((float)(j - P), cx), P, t_hi, col_t0 + j, col_frac + j);
-        }
-    }
-    // stage 0: the crop of this channel (after HSV) into sb, pitch ow
-    for (int i = threadIdx.x; i < oh * ow; i += blockDim.x) {
-        const int y = i / ow, xx = i - y * ow;
-        const uint8_t* px = src + ((int64_t)(r0 + y) * W + c0 + xx) * 3;
-        sb[i] = HSV ? hsv_channel(px, ch, sh, ss, sv) : px[ch];
-    }
-    __syncthreads();
-    // shear 1, along W over the content rows: padded column k holds crop
-    // column k - P for P <= k < P + ow and zero elsewhere; sb -> sa
-    for (int i = threadIdx.x; i < oh * Wp; i += blockDim.x) {
-        const int y = i / Wp, j = i - y * Wp;
-        const int t0 = row_t0[y];
-        int k0 = (j + t0 - P) % Wp;
-        if (k0 < 0) k0 += Wp;
-        const int k1 = k0 + 1 == Wp ? 0 : k0 + 1;
-        const uint8_t* line = sb + y * ow;
-        const uint8_t v0 = (k0 >= P && k0 < P + ow) ? line[k0 - P] : 0;
-        const uint8_t v1 = (k1 >= P && k1 < P + ow) ? line[k1 - P] : 0;
-        sa[i] = lerp_u8(v0, v1, row_frac[y]);
-    }
-    __syncthreads();
-    // shear 2, along H over all Wp columns, keeping padded rows P..P+oh-1:
-    // padded row k holds sa's row k - P for P <= k < P + oh and zero
-    // elsewhere; sa -> sb
-    for (int i = threadIdx.x; i < oh * Wp; i += blockDim.x) {
-        const int y = i / Wp, j = i - y * Wp;
-        int k0 = (y + col_t0[j]) % Hp;  // (y + P) + t0 - P
-        const int k1 = k0 + 1 == Hp ? 0 : k0 + 1;
-        const uint8_t v0 = (k0 >= P && k0 < P + oh) ? sa[(k0 - P) * Wp + j] : 0;
-        const uint8_t v1 = (k1 >= P && k1 < P + oh) ? sa[(k1 - P) * Wp + j] : 0;
-        sb[i] = lerp_u8(v0, v1, col_frac[j]);
-    }
-    __syncthreads();
-    // shear 3, along W, output columns P..P+ow-1 only, flipped on the store
-    uint8_t* dst = out + ((int64_t)n * 3 + ch) * oh * ow;
-    for (int i = threadIdx.x; i < oh * ow; i += blockDim.x) {
-        const int y = i / ow, xo = i - y * ow;
-        int k0 = (xo + row_t0[y]) % Wp;  // (xo + P) + t0 - P
-        const int k1 = k0 + 1 == Wp ? 0 : k0 + 1;
-        const uint8_t* line = sb + y * Wp;
-        dst[y * ow + (flip ? ow - 1 - xo : xo)] = lerp_u8(line[k0], line[k1], row_frac[y]);
-    }
-}
-
 constexpr int kBandWarps = 8;
 
 // k brought into [0, n) by whole periods: one compare and subtract (or add)
@@ -434,7 +341,7 @@ __device__ uint8_t rotated_direct(const uint8_t* src, int W, int r0, int c0, int
     return lerp_u8(v3[0], v3[1], f3);
 }
 
-// With rotation, route "band": block (column chunk, band, image) writes the
+// With rotation: block (column chunk, band, image) writes the
 // output tile of rows [th * blockIdx.y, + th) and columns [tw * blockIdx.x,
 // + tw) of all three channels of image blockIdx.z. Going back from the tile
 // through the shears gives three windows, each a run of a circular index
@@ -661,15 +568,14 @@ int dorknet_max_block_smem(int device) {
 
 // x: (B, H, W, 3) uint8; table: (B, 8) fp32; out: (B, 3, oh, ow) uint8.
 // P = 0: no rotation; else the rotation's zero margin, with t_hi =
-// 2^bitlen(2P - 2) - 1. hsv: 0 or 1. With rotation, route 0 ("plane") or 1
-// ("band": tiles of th rows x tw columns, windows up to cap_j, cap_r, cap_k;
-// caps of 0 send every tile through rotated_direct).
+// 2^bitlen(2P - 2) - 1. hsv: 0 or 1. With rotation, tiles of th rows x tw
+// columns and windows up to cap_j, cap_r, cap_k; caps of 0 send every tile
+// through rotated_direct.
 int dorknet_augment_planes(const void* x, const void* table, void* out, int B, int H,
-                           int W, int oh, int ow, int P, float t_hi, int hsv, int route,
-                           int th, int tw, int cap_j, int cap_r, int cap_k, void* stream,
-                           int device) {
-    if (B < 0 || B > 65535 || oh < 1 || ow < 1 || oh > H || ow > W || P < 0 || route < 0 ||
-        route > 1 || (route == 1 && (th < 1 || tw < 1 || cap_j < 0 || cap_r < 0 || cap_k < 0)))
+                           int W, int oh, int ow, int P, float t_hi, int hsv, int th, int tw,
+                           int cap_j, int cap_r, int cap_k, void* stream, int device) {
+    if (B < 0 || B > 65535 || oh < 1 || ow < 1 || oh > H || ow > W || P < 0 || th < 1 ||
+        tw < 1 || cap_j < 0 || cap_r < 0 || cap_k < 0)
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
@@ -688,19 +594,10 @@ int dorknet_augment_planes(const void* x, const void* table, void* out, int B, i
         }
         return (int)cudaGetLastError();
     }
-    if (route == 1)
-        return (int)(hsv ? launch_band<true>(xp, tp, op, B, H, W, oh, ow, P, t_hi, th, tw,
-                                             cap_j, cap_r, cap_k, s)
-                         : launch_band<false>(xp, tp, op, B, H, W, oh, ow, P, t_hi, th, tw,
-                                              cap_j, cap_r, cap_k, s));
-    const int Wp = ow + 2 * P;
-    const size_t smem = (size_t)((2 * oh * Wp + 3) & ~3) + (size_t)8 * (oh + Wp);
-    auto kernel = hsv ? augment_rotate_kernel<true> : augment_rotate_kernel<false>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<B * 3, kRotateThreads, smem, s>>>(xp, tp, op, H, W, oh, ow, P, t_hi);
-    return (int)cudaGetLastError();
+    return (int)(hsv ? launch_band<true>(xp, tp, op, B, H, W, oh, ow, P, t_hi, th, tw, cap_j,
+                                         cap_r, cap_k, s)
+                     : launch_band<false>(xp, tp, op, B, H, W, oh, ow, P, t_hi, th, tw, cap_j,
+                                          cap_r, cap_k, s));
 }
 
 }  // extern "C"

@@ -23,10 +23,9 @@
 //   multiples of 8 and 16-byte aligned pointers, TMA and wgmma;
 // - 2, the CUDA cores, pipelined (this file, matmul_pipelined_kernel): fp32
 //   a and b with K > 0, K and N multiples of 4, 16-byte aligned a, b and y,
-//   in one of three tiles that the caller picks (ops/cuda/matmul.py:
+//   in one of two tiles that the caller picks (ops/cuda/matmul.py:
 //   _gemm_tile): BM x BN = 64 x 64 for y alone, 128 x 64 with the
-//   statistics (half the partials for the finishing pass to sum), and
-//   128 x 128, kept to be timed against them.
+//   statistics (half the partials for the finishing pass to sum).
 //
 // What bounds the CUDA-core routes on an H100: for the flagship's pointwise
 // layers in fp32, operations (2*M*N*K flops at the 67 TFLOP/s of the fp32
@@ -241,7 +240,7 @@ template <int BM, int BN>
 constexpr int pl_threads() { return (BM / 8) * (BN / 8); }
 template <int BM, int BN>
 constexpr int pl_smem_bytes() { return PL_STAGES * (BM * PL_BK + PL_BK * BN) * 4; }
-// blocks an SM must hold: 128 registers a thread at 256 and 128 threads;
+// blocks an SM must hold: four of the 128-thread tile (128 registers a thread);
 // the 64-thread tile, whose copies hold more addresses, gets up to 168
 template <int BM, int BN>
 constexpr int pl_min_blocks() {
@@ -413,8 +412,6 @@ template <typename TO>
 cudaError_t pl_dispatch_tile(const void* a, const void* b, void* y, float* partials,
                              float* mean, float* var, int M, int K, int N, int bm, int bn,
                              bool stats, cudaStream_t stream) {
-    if (bm == 128 && bn == 128)
-        return pl_launch<128, 128, TO>(a, b, y, partials, mean, var, M, K, N, stats, stream);
     if (bm == 128 && bn == 64)
         return pl_launch<128, 64, TO>(a, b, y, partials, mean, var, M, K, N, stats, stream);
     if (bm == 64 && bn == 64)
@@ -434,9 +431,9 @@ extern "C" {
 
 // in_dtype (a and b) and out_dtype (y): 0 = float32, 1 = bfloat16. a is
 // contiguous (M,K), b (K,N), y (M,N). (bm, bn) is the tile a block owns:
-// 128 x 128 on routes 0 and 1, one of 128 x 128, 128 x 64 and 64 x 64 on
-// route 2. With stats != 0, partials is float32 (ceil(M/bm), 2, N) scratch
-// and mean, var are float32 (N,); M must then be positive. M, N >= 1,
+// 128 x 128 on routes 0 and 1, 128 x 64 or 64 x 64 on route 2. With
+// stats != 0, partials is float32 (ceil(M/bm), 2, N) scratch and mean, var
+// are float32 (N,); M must then be positive. M, N >= 1,
 // K >= 0. route: 0 = CUDA cores, 1 = tensor cores, 2 = CUDA cores pipelined
 // (see the top of this file for what routes 1 and 2 take).
 int dorknet_matmul(const void* a, const void* b, void* y, void* partials, void* mean,

@@ -23,7 +23,7 @@ and are re-exported here; ``augment_batch_planes`` chains them for float
 batches.
 
 The per-image HWC/CHW oracle paths (``augment_image``, ``augment_batch``,
-``internal_layout`` "HWC"/"CHW") are not ported (ROADMAP A5b).
+``internal_layout`` "HWC"/"CHW") are not ported (ROADMAP A5).
 """
 
 import numpy as np
@@ -138,7 +138,7 @@ def train_pipeline(generator, images_precrop, one_hot, out_hw, hsv_pert_tuples=N
     if internal_layout != "planes":
         raise NotImplementedError(
             "internal_layout={!r}: only the planes path is ported; the per-image "
-            "HWC/CHW oracle paths are ROADMAP A5b".format(internal_layout))
+            "HWC/CHW oracle paths are ROADMAP A5".format(internal_layout))
     if output_layout not in ("NCHW", "NHWC"):
         raise ValueError("output_layout must be 'NCHW' or 'NHWC', got {!r}".format(
             output_layout))

@@ -14,7 +14,7 @@ A packed directory holds
 Directories written by either package read here. ``write_packed_arrays``
 writes one from arrays already decoded; packing a JPEG tree
 (``write_packed_dataset``, which decodes with cv2 or the native loader) is
-not ported (ROADMAP A5b).
+not ported (ROADMAP A5).
 """
 
 import json

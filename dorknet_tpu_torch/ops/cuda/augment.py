@@ -20,19 +20,16 @@ On a CUDA tensor ``augment_planes_fused`` launches the kernel or raises; on
 a CPU tensor it runs ``augment_planes_fused_plain``, the planes algorithm of
 ``ops/augment.py`` with ``torch.roll`` and ``where``.
 Nothing sends a CUDA tensor to the plain version. Each launch adds one to
-``augment_planes_fused.launches``, and to ``.launches_by_route``.
+``augment_planes_fused.launches``.
 
-With rotation the kernel has two routes (``ROUTES``). ``augment_planes_fused``
-always takes ``"band"``: a block owns a tile of about ``BAND_ROWS`` x
-``BAND_COLS`` output pixels (``band_tile``) of one image, three channels, and stages the windows of rows
-and columns that the shears read back from it (``band_windows``, bounded by
-``band_plan``). Its shared memory grows with the tile and the rotation's
-reach, not with the plane, and a tile whose windows exceed the plan (a table
-with angles beyond the range its margin was sized for) computes each output
-byte from the input directly: every size runs. ``"plane"`` (a block holds a
-whole channel in two stage buffers, ``smem_bytes``) is kept to be timed
-against it through ``launch_augment_kernel(..., route="plane")``. Without
-rotation both names run the same pointwise kernel.
+With rotation a block of the kernel owns a tile of about ``BAND_ROWS`` x
+``BAND_COLS`` output pixels (``band_tile``) of one image, three channels,
+and stages the windows of rows and columns that the shears read back from
+it (``band_windows``, bounded by ``band_plan``). Its shared memory grows
+with the tile and the rotation's reach, not with the plane, and a tile whose
+windows exceed the plan (a table with angles beyond the range its margin was
+sized for) computes each output byte from the input directly: every size
+runs. Without rotation a pointwise kernel runs.
 """
 
 import ctypes
@@ -114,15 +111,14 @@ def _validate(x):
     if x.dtype != torch.uint8:
         raise TypeError("augment_planes_fused: x must be uint8 (the kernel rounds every "
                         "stage to uint8), got {}; float precrop batches on the card are "
-                        "ROADMAP A5b".format(x.dtype))
+                        "ROADMAP A5".format(x.dtype))
     if not x.is_contiguous():
         raise ValueError("augment_planes_fused: x must be contiguous")
 
 
-ROUTES = ("plane", "band")  # their codes at the C entry point: 0, 1
-BAND_ROWS = 45   # output rows of a band-route tile, at most (band_tile)
-BAND_COLS = 75   # output columns of a band-route tile, at most
-BAND_WARPS = 8   # warps of a band-route block (csrc/augment_planes.cu kBandWarps)
+BAND_ROWS = 45   # output rows of a tile, at most (band_tile)
+BAND_COLS = 75   # output columns of a tile, at most
+BAND_WARPS = 8   # warps of a block (csrc/augment_planes.cu kBandWarps)
 
 
 def band_tile(oh, ow):
@@ -131,17 +127,6 @@ def band_tile(oh, ow):
     225 takes 45 x 75), so that no band or column chunk is a sliver that
     stages a whole halo for a few outputs."""
     return tuple(-(-n // -(-n // t)) for n, t in ((oh, BAND_ROWS), (ow, BAND_COLS)))
-
-
-def smem_bytes(oh, ow, P):
-    """Dynamic shared memory of one block of the plane route: two uint8
-    stage buffers of oh x (ow + 2P), padded to 4 bytes, and an int and a
-    float shift for each of the oh rows and ow + 2P columns. The kernel
-    without rotation uses none."""
-    if not P:
-        return 0
-    Wp = ow + 2 * P
-    return ((2 * oh * Wp + 3) & ~3) + 8 * (oh + Wp)
 
 
 def t_hi_of(P):
@@ -249,8 +234,7 @@ def augment_planes_fused(x, params, out_hw, hsv_pert_tuples=None, rotation_tuple
     ``params`` (``draw_batch_params``), as the JAX package's
     ``augment_batch_planes`` computes it for uint8 planes. Returns (B,3,oh,ow)
     uint8 ((B,3,H,W) with crop_mode None). On a CUDA tensor: one kernel
-    launch (the band route, which runs every size), or an error (a float
-    batch)."""
+    launch, which runs every size, or an error (a float batch)."""
     _validate(x)
     oh, ow, P = _geometry(x, out_hw, rotation_tuple, crop_mode)
     B, H, W = x.shape[:3]
@@ -264,20 +248,15 @@ def augment_planes_fused(x, params, out_hw, hsv_pert_tuples=None, rotation_tuple
     return launch_augment_kernel(x, table, (oh, ow), hsv_on, P)
 
 
-def launch_augment_kernel(x, table, out_hw, hsv_on, P, route="band", tile=None):
+def launch_augment_kernel(x, table, out_hw, hsv_on, P, tile=None):
     """The kernel alone, on a CUDA batch x (B,H,W,3) uint8 and the table of
     ``augment_param_table`` on the same device: returns (B,3,oh,ow) uint8.
-    With rotation, ``route`` "band" (tiles of ``tile`` = (rows, columns),
-    default ``band_tile``, halved by ``fit_band`` to what a block's shared
-    memory holds) or "plane" (raises where a channel's two stage
-    planes exceed a block's shared memory). Counts the launch in
-    ``augment_planes_fused.launches`` and ``.launches_by_route[route]``."""
+    With rotation, in tiles of ``tile`` = (rows, columns), default
+    ``band_tile``, halved by ``fit_band`` to what a block's shared memory
+    holds. Counts the launch in ``augment_planes_fused.launches``."""
     if x.device.type != "cuda" or table.device != x.device:
         raise ValueError("augment_planes_fused: the kernel needs x and the table on one "
                          "CUDA device, got {} and {}".format(x.device, table.device))
-    if route not in ROUTES:
-        raise ValueError("augment_planes_fused: route must be one of {}, got {!r}".format(
-            ROUTES, route))
     B, H, W = x.shape[:3]
     oh, ow = out_hw
     out = torch.empty((B, 3, oh, ow), dtype=torch.uint8, device=x.device)
@@ -289,23 +268,14 @@ def launch_augment_kernel(x, table, out_hw, hsv_on, P, route="band", tile=None):
         limit = kernels.lib.dorknet_max_block_smem(x.device.index)
         if limit < 0:
             check(kernels.lib, -limit, "augment_planes_fused shared-memory query")
-        if route == "band":
-            plan = fit_band(oh, ow, P, limit, *(tile or band_tile(oh, ow)))
-        elif smem_bytes(oh, ow, P) > limit:
-            raise ValueError(
-                "augment_planes_fused: the plane route rotating {}x{} needs {} bytes of "
-                "shared memory a block (two {}x{} uint8 stages and the line shifts), more "
-                "than the {} a block of this card can have".format(
-                    oh, ow, smem_bytes(oh, ow, P), oh, ow + 2 * P, limit))
+        plan = fit_band(oh, ow, P, limit, *(tile or band_tile(oh, ow)))
     err = kernels.lib.dorknet_augment_planes(
         x.data_ptr(), table.data_ptr(), out.data_ptr(), B, H, W, oh, ow, P,
-        ctypes.c_float(float(t_hi_of(P)) if P else 0.0), int(hsv_on), ROUTES.index(route),
-        *plan, _stream(x), x.device.index)
-    check(kernels.lib, err, "augment_planes_fused launch ({} route)".format(route))
+        ctypes.c_float(float(t_hi_of(P)) if P else 0.0), int(hsv_on), *plan, _stream(x),
+        x.device.index)
+    check(kernels.lib, err, "augment_planes_fused launch")
     augment_planes_fused.launches += 1
-    augment_planes_fused.launches_by_route[route] += 1
     return out
 
 
 augment_planes_fused.launches = 0
-augment_planes_fused.launches_by_route = dict.fromkeys(ROUTES, 0)

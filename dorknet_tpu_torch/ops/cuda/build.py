@@ -72,8 +72,7 @@ def _bind(lib):
                                             ci, ci, ci, ci, vp, ci]
     lib.dorknet_depthwise3x3_dw.restype = ci
     lib.dorknet_augment_planes.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                           ctypes.c_float, ci, ci, ci, ci, ci, ci, ci, vp,
-                                           ci]
+                                           ctypes.c_float, ci, ci, ci, ci, ci, ci, vp, ci]
     lib.dorknet_augment_planes.restype = ci
     lib.dorknet_bn_stats.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, vp, ci]
     lib.dorknet_bn_stats.restype = ci

@@ -46,13 +46,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # their codes at the C entry point: 0, 1, 2
 ROUTES = ("cuda_core", "tensor_core", "cuda_core_pipelined")
 # (BM, BN) of a block's tile of y: routes 0 and 1 have one (csrc/matmul.cu
-# MM_BM x MM_BN, matmul_sm90.cu TC_BM x TC_BN); the pipelined route's
-# instances, largest first
+# MM_BM x MM_BN, matmul_sm90.cu TC_BM x TC_BN)
 FIXED_TILE = (128, 128)
-# the pipelined route's instances; _gemm_tile picks the first two (without
-# and with the statistics), 128 x 128 is kept to be timed against them
-# (chip_smoke.py phase 11)
-PIPELINED_TILES = ((64, 64), (128, 64), (128, 128))
+# the pipelined route's instances, as _gemm_tile picks them: without and
+# with the statistics
+PIPELINED_TILES = ((64, 64), (128, 64))
 
 def _validate(a, b, out_dtype, who):
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -108,13 +106,11 @@ def _gemm_tile(M, K, N, stats=False):
     """(BM, BN) of the pipelined route's tile for an (M,K) @ (K,N): 64 x 64
     for ``matmul``, 128 x 64 for ``matmul_bn_stats``. Both are 64 columns
     wide, so N = 64 masks no column. Without statistics the 64-row tile
-    gives the most blocks and, on an H100, is the fastest of the three
-    instances of ``PIPELINED_TILES`` at every fp32 GEMM of the flagship;
-    with them it doubles the partials that the fixed-order finishing pass
-    sums (3,136 a column at 200,704 rows), which costs more than the
-    smaller tile saves. ``chip_smoke.py`` phase 11 times each instance at
-    each of those shapes, with and without the statistics. K does not
-    enter: every tile loops over all of it."""
+    gives the most blocks and, on an H100, was the fastest tile at every
+    fp32 GEMM of the flagship; with them it doubles the partials that the
+    fixed-order finishing pass sums (3,136 a column at 200,704 rows), which
+    costs more than the smaller tile saves. K does not enter: every tile
+    loops over all of it."""
     return (128, 64) if stats else (64, 64)
 
 

@@ -267,9 +267,8 @@ def test_augment_kernel_matches_plain(cuda, B, H, W, out, cfg):
 def test_augment_kernel_refuses_float_and_large_rotations(cuda):
     """A float precrop batch on the card raises (the kernel is uint8-only),
     in the wrapper and through train_pipeline. A 320 x 320 rotation, whose
-    two stage planes exceed a block's shared memory on the plane route (which
-    raises with the size), runs on the band route and equals the plain
-    version."""
+    whole stage planes would exceed a block's shared memory, runs in tiles
+    and equals the plain version."""
     p = draw_batch_params(torch.Generator(device=cuda), 2, (30, 30), (24, 24), **AUG_CFG)
     xf = torch.zeros((2, 30, 30, 3), device=cuda)
     with pytest.raises(TypeError, match="uint8"):
@@ -280,21 +279,16 @@ def test_augment_kernel_refuses_float_and_large_rotations(cuda):
     big = _precrop_batch(cuda, 1, 330, 330, seed=5)
     pb = draw_batch_params(torch.Generator(device=cuda).manual_seed(1), 1, (330, 330),
                            (320, 320), **AUG_CFG)
-    before = dict(augment_planes_fused.launches_by_route)
+    before = augment_planes_fused.launches
     got = augment_planes_fused(big, pb, (320, 320), **AUG_CFG)
     want = augment_planes_fused(big.cpu(), {k: v.cpu() for k, v in pb.items()}, (320, 320),
                                 **AUG_CFG)
     torch.cuda.synchronize()
-    assert augment_planes_fused.launches_by_route["band"] == before["band"] + 1
+    assert augment_planes_fused.launches == before + 1
     assert torch.equal(got.cpu(), want)
-    table = augment_param_table(pb, 1, (330, 330), (320, 320), device=cuda, **AUG_CFG)
-    P = shear_pad(AUG_CFG["rotation_tuple"], 320, 320)
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        launch_augment_kernel(big, table, (320, 320), True, P, route="plane")
-    assert augment_planes_fused.launches_by_route["plane"] == before["plane"]
 
 
-# the band route against the plane route and the plain version: the cases
+# the band route against the plain version: the cases
 # of test_augment_kernel_matches_plain with rotation, a P >= 33 one (100 px,
 # +-40 degrees), and one whose table holds angles beyond the range its margin
 # was sized for, so that the second shear of a bottom band reads the top rows
@@ -307,23 +301,19 @@ BAND_CASES = [(4, 40, 40, (32, 32), 15.0, 15.0), (3, 37, 45, (29, 33), 15.0, 15.
 @pytest.mark.parametrize("tile", [None, (32, 64), (16, 128), (1, 1)])
 @pytest.mark.parametrize("B,H,W,out,pad_deg,deg_max", BAND_CASES,
                          ids=["40", "37x45", "281", "100_P35", "100_wraps"])
-def test_band_route_equals_plane_route_and_plain(cuda, B, H, W, out, pad_deg, deg_max, tile):
-    """Bit-equal to the plain version and to the plane route, with HSV and
-    flip, at several tiles (the last case's tiles partly on the direct
-    path); two launches, one on each route."""
+def test_band_route_equals_plain(cuda, B, H, W, out, pad_deg, deg_max, tile):
+    """Bit-equal to the plain version, with HSV and flip, at several tiles
+    (the last case's tiles partly on the direct path); one launch."""
     cfg = dict(AUG_CFG, rotation_tuple=(-deg_max, deg_max))
     x = _precrop_batch(cuda, B, H, W, seed=B * H + W)
     p = draw_batch_params(torch.Generator(device=cuda).manual_seed(4), B, (H, W), out, **cfg)
     table = augment_param_table(p, B, (H, W), out, device=cuda, **cfg)
     P = shear_pad((-pad_deg, pad_deg), *out)
-    before = dict(augment_planes_fused.launches_by_route)
-    got = launch_augment_kernel(x, table, out, True, P, route="band", tile=tile)
-    plane = launch_augment_kernel(x, table, out, True, P, route="plane")
+    before = augment_planes_fused.launches
+    got = launch_augment_kernel(x, table, out, True, P, tile=tile)
     want = augment_planes_fused_plain(x.cpu(), table.cpu(), out, True, P, True)
     torch.cuda.synchronize()
-    assert {r: augment_planes_fused.launches_by_route[r] - before[r] for r in before} == \
-        {"band": 1, "plane": 1}
-    assert torch.equal(got, plane)
+    assert augment_planes_fused.launches == before + 1
     assert torch.equal(got.cpu(), want)
 
 
@@ -894,7 +884,7 @@ PIPELINED_CASES = [c for c in GEMM_CASES if c[1] % 4 == 0 and c[2] % 4 == 0 and 
 @pytest.mark.parametrize("M,K,N", PIPELINED_CASES)
 def test_pipelined_route_is_bit_equal_to_the_cuda_core_route(cuda, M, K, N):
     """fp32 y of "cuda_core_pipelined", in its default tile and in each of
-    its three, torch.equal to "cuda_core"'s (each element one fmaf chain
+    its two, torch.equal to "cuda_core"'s (each element one fmaf chain
     over k in order, whatever the tile); with the statistics epilogue, y
     bit-equal too in fp32 and bf16, the statistics within their limits of
     the plain version and bit-equal on repeat."""
