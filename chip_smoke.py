@@ -194,7 +194,11 @@ Phases (each checks its results; any failure ends the run non-zero with no
     three eager steps);
 18. the second half of the stretch zoo at full width (224 px, 1,000
     classes, batch 64), through phase 16's helpers: 18a-18d MobileNet-V3-Large
-    as 16a-16d (9 depthwise 3x3 launches a served dispatch; an eager step
+    as 16a-16d (9 depthwise 3x3 launches a served dispatch, and in the
+    BN-folded one 48 ``bias_act`` launches, ``V3L_BIAS``: none 16, relu 11,
+    hswish 21; in every served run of phases 16 and 18 the bias passes by
+    act equal the biased layers ``layers/sequence.run_layers`` counted;
+    no training step of any phase launches one; an eager step
     9/9/9 and 46 ``batch_norm_stats`` launches, its CPU twin; a replay's
     profile names them; the kernels at its 8 distinct 3x3 shapes, and its 6
     5x5 layers under cuDNN, forward and backward, for the record, their
@@ -220,7 +224,14 @@ Phases (each checks its results; any failure ends the run non-zero with no
     kernels against the unfused pair (the kernels without an activation and
     the activation layer's ops under autograd) in turns, device ms, and the
     first layer's fused act(y) bit-equal to the unfused in fp32. Alone:
-    ``python -c "import chip_smoke as cs; cs.phase_build(); cs.phase_bn_act()"``.
+    ``python -c "import chip_smoke as cs; cs.phase_build(); cs.phase_bn_act()"``;
+19c. the bias pass of the served forward (``bias_act``, ``csrc/bn_train.cu``)
+    at MobileNet-V3-Large's 48 BN-folded layers (``V3L_BIAS``) at the bulk
+    serving cell's batch of 256, fp32: every output bit-equal to the eager
+    add and activation, and the 48 passes' device ms against their 2-pass
+    bound and against the eager ops, and the host's µs to queue them, in
+    turns. Alone: ``python -c "import
+    chip_smoke as cs; cs.phase_build(); cs.phase_bias_act()"``.
 
 The line before the last is a JSON object of the kernels of the paths (with
 the launches by route, and both routes' times, device times included, of
@@ -231,7 +242,7 @@ the training kernels their wrapper launches over phase 13b's driven
 steps, and every entry its launches in each run of phases 14-18 and in one
 replay of phase 16's and phase 18's captured steps; phase 19's kernels their
 own numbers by cell); JSON objects of phase
-13b's, phases 14-18's and phase 19b's numbers come before it; the last line is
+13b's, phases 14-18's and phases 19b's and 19c's numbers come before it; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -267,13 +278,14 @@ from dorknet_tpu_torch.layers.base import to_nhwc
 from dorknet_tpu_torch.examples import synthetic_cam_demo
 from dorknet_tpu_torch.models import (EfficientNetLite0, MobileNetV2, MobileNetV3Large, ResNet18,
                                       ResNet50)
-from dorknet_tpu_torch.layers import BatchNormLayer, HardSwish, ReLu
+from dorknet_tpu_torch.layers import BatchNormLayer, HardSwish, ReLu, sequence
 from dorknet_tpu_torch.network import (BatchingServer, InferenceRunner, Trainer,
                                        load_serving_artifact)
 from dorknet_tpu_torch.ops.augment import shear_pad
 from dorknet_tpu_torch.ops.cuda.augment import (
     _geometry, augment_param_table, augment_planes_fused, augment_planes_fused_plain,
     launch_augment_kernel)
+from dorknet_tpu_torch.ops.cuda.bias_act import bias_act, bias_act_plain
 from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats, batch_norm_stats_plain
 from dorknet_tpu_torch.ops.cuda.bn_train import (bn_apply, bn_apply_plain, bn_bwd_dx,
                                                  bn_bwd_dx_plain, bn_bwd_reduce)
@@ -381,11 +393,20 @@ def require(cond, what):
 
 
 def reset_launches(kernels):
-    """Set each kernel's launch count, and its counts per route, to 0."""
+    """Set each kernel's launch count, and its counts per route and per
+    activation, to 0."""
     for k in kernels:
         k.launches = 0
         for route in getattr(k, "launches_by_route", {}):
             k.launches_by_route[route] = 0
+        for act in getattr(k, "launches_by_act", {}):
+            k.launches_by_act[act] = 0
+
+
+def require_no_bias_pass(what, before):
+    """No bias pass launched since ``before`` (``bias_act.launches``): a
+    training step pairs only its batch norms with their activations."""
+    require(bias_act.launches == before, "{}: a training step launched bias_act".format(what))
 
 
 def route_counts(kernels=KERNELS):
@@ -1200,6 +1221,7 @@ def phase_train():
                       cuda_graph=False)
     X, y = train_batches(2, 3, BATCH)
     reset_launches(TRAIN_KERNELS)
+    bias_before = bias_act.launches
     for step in range(3):
         before = [k.launches for k in TRAIN_KERNELS]
         loss, preds = trainer.step(X[step], y[step])
@@ -1226,8 +1248,9 @@ def phase_train():
     require(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
             "non-finite parameters")
     require(all(bool(torch.isfinite(e).all()) for e in trainer._ema), "non-finite EMA")
-    log("  3 steps at batch {}: launches forward/dx/dw/bn_stats {} (want {})".format(
-        BATCH, launches, [3 * n for n in TRAIN_WANT]))
+    require_no_bias_pass("phase 7", bias_before)
+    log("  3 steps at batch {}: launches forward/dx/dw/bn_stats {} (want {}), bias_act "
+        "0".format(BATCH, launches, [3 * n for n in TRAIN_WANT]))
     return launches, routes
 
 
@@ -1556,6 +1579,7 @@ def phase_aug_train(dd):
     aug = dict(AUG_CFG, mixup=MIXUP)
     want = [1] + TRAIN_WANT
     reset_launches(AUG_KERNELS)
+    bias_before = bias_act.launches
     for step in range(5):
         before = [k.launches for k in AUG_KERNELS]
         rows = dd.next_indices()
@@ -1593,8 +1617,9 @@ def phase_aug_train(dd):
     require_vector_route("augmented step, bf16 flow", routes, KERNELS)
     require(all(bool(torch.isfinite(p).all()) for p in trainer.network.parameters()),
             "non-finite parameters")
-    log("  8 steps of {} trained images: launches augment/forward/dx/dw/bn_stats {}".format(
-        2 * AUG_BATCH, launches))
+    require_no_bias_pass("phase 10", bias_before)
+    log("  8 steps of {} trained images: launches augment/forward/dx/dw/bn_stats {}, bias_act "
+        "0".format(2 * AUG_BATCH, launches))
     return launches, rows_stack[-1]
 
 
@@ -1956,6 +1981,7 @@ def phase_accumulate():
              BN_LAYERS * (ACC_K + 1)]
     wants = (fresh, [n * ACC_K for n in TRAIN_WANT])
     launches = []
+    bias_before = bias_act.launches
     for call, want in enumerate(wants):
         reset_launches(TRAIN_KERNELS)
         sl = slice(call * ACC_K, (call + 1) * ACC_K)
@@ -1976,6 +2002,7 @@ def phase_accumulate():
         float(loss16), got))
     require(got == wants[1] and np.isfinite(float(loss16)), "the bf16-flow accumulate call")
     require_vector_route("accumulate call, bf16 flow", kernels=KERNELS)
+    require_no_bias_pass("phase 13", bias_before)
     require(all(bool(torch.isfinite(p).all()) for p in net.parameters()),
             "non-finite parameters")
     xs = torch.from_numpy(X[:ACC_K]).to(DEVICE)
@@ -1993,7 +2020,8 @@ REPLAY_KERNELS = (("depthwise3x3_fwd_vec_kernel", DW_LAYERS), ("depthwise3x3_dx_
                   DW_LAYERS), ("depthwise3x3_dw_vec_kernel", DW_LAYERS),
                   ("bn_stats_partial_kernel", BN_LAYERS))
 GEMM_KERNELS = ("matmul_kernel", "matmul_pipelined_kernel", "matmul_tc_kernel")
-REPLAY_WANT = REPLAY_KERNELS + tuple((name, 0) for name in GEMM_KERNELS)
+# and the test-mode bias pass, which no training step runs
+REPLAY_WANT = REPLAY_KERNELS + tuple((name, 0) for name in GEMM_KERNELS + ("bias_act_kernel",))
 GRAPH_STEPS = 3  # replays held against eager steps, per entry point
 GRAPH_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_torch_trainer.py's, if not bit-equal
 
@@ -2192,9 +2220,11 @@ def captured_run(what, fn, steps, want):
     (its eager steps, warm-up and capture; a replay moves none)."""
     torch.cuda.synchronize()
     reset_launches(AUG_KERNELS)
+    bias_before = bias_act.launches
     out = [fn(k) for k in range(steps)]
     torch.cuda.synchronize()
     launches = [k.launches for k in AUG_KERNELS]
+    require_no_bias_pass(what, bias_before)
     log("  {}: wrapper launches over the captured trainer's {} calls augment/forward/dx/dw/"
         "bn_stats {} (want {})".format(what, steps, launches, want))
     require(launches == want, "{}: the captured run's launches".format(what))
@@ -2620,6 +2650,19 @@ LITE0_DW = [(112, 32, 1, 1), (112, 96, 2, 1), (56, 144, 1, 1), (28, 240, 2, 1), 
             (7, 1152, 1, 1)]
 LITE0_DW5 = [(56, 144, 2, 1), (28, 240, 1, 1), (14, 480, 1, 1), (14, 672, 1, 2), (14, 672, 2, 1),
              (7, 1152, 1, 3)]
+# the bias passes of MobileNet-V3-Large's BN-folded test forward at 224 px:
+# (output shape without the batch axis, the act, how many); 48 a dispatch:
+# none 16, relu 11, hswish 21
+V3L_BIAS = [
+    ((112, 112, 16), "hswish", 1), ((112, 112, 16), "relu", 1), ((112, 112, 16), "none", 1),
+    ((112, 112, 64), "relu", 1), ((56, 56, 64), "relu", 1), ((56, 56, 24), "none", 2),
+    ((56, 56, 72), "relu", 3), ((28, 28, 72), "relu", 1), ((28, 28, 40), "none", 3),
+    ((28, 28, 120), "relu", 4), ((28, 28, 240), "hswish", 1), ((14, 14, 240), "hswish", 1),
+    ((14, 14, 80), "none", 4), ((14, 14, 200), "hswish", 2), ((14, 14, 184), "hswish", 4),
+    ((14, 14, 480), "hswish", 2), ((14, 14, 112), "none", 2), ((14, 14, 672), "hswish", 3),
+    ((7, 7, 672), "hswish", 1), ((7, 7, 160), "none", 3), ((7, 7, 960), "hswish", 5),
+    ((1280,), "hswish", 1), ((1000,), "none", 1),
+]
 MNV2_NUDGE = 1e-6  # the CPU twin's yardstick: its input scaled by 1 + this
 # the twin's update, relative L2 over all parameters: a 1e-6 nudge of the
 # input moves the CPU's own update by about 0.8% (relative L2 at 224 px,
@@ -2630,11 +2673,14 @@ MNV2_UPDATE_TOL = 5e-2
 class Zoo:
     """A model of the stretch zoo as phases 16 and 18 drive it at full
     width: its class and constructor name, the seed of its served batch, its
-    depthwise layers (``dw`` 3x3, ``dw5`` 5x5) and its batch norms."""
+    depthwise layers (``dw`` 3x3, ``dw5`` 5x5), its batch norms and, where
+    the phases hold the served launches to a table, its folded forward's
+    bias passes (``bias``, as ``V3L_BIAS``)."""
 
-    def __init__(self, name, cls, tag, seed, dw, bn_layers, dw5=()):
+    def __init__(self, name, cls, tag, seed, dw, bn_layers, dw5=(), bias=None):
         self.name, self.cls, self.tag, self.seed = name, cls, tag, seed
         self.dw, self.dw5, self.bn_layers = list(dw), list(dw5), bn_layers
+        self.bias = bias
         self.image, self.classes = (3, 224, 224), 1000
         self.lr = 0.05 * (BATCH / 200.0)
 
@@ -2653,7 +2699,16 @@ class Zoo:
         return (("depthwise3x3_fwd_vec_kernel", self.dw_layers),
                 ("depthwise3x3_dx_vec_kernel", self.dw_layers),
                 ("depthwise3x3_dw_vec_kernel", self.dw_layers),
-                ("bn_stats_partial_kernel", self.bn_layers)) + tuple((n, 0) for n in GEMM_KERNELS)
+                ("bn_stats_partial_kernel", self.bn_layers)) + tuple(
+                    (n, 0) for n in GEMM_KERNELS + ("bias_act_kernel",))
+
+    @property
+    def bias_want(self):
+        """bias_act's launches by act in one folded served dispatch."""
+        out = dict.fromkeys(bias_act.launches_by_act, 0)
+        for _, act, n in self.bias:
+            out[act] += n
+        return out
 
     def fresh(self):
         """The network from np.random.seed(0), on the CPU."""
@@ -2677,7 +2732,8 @@ class Zoo:
 
 
 MNV2 = Zoo("MobileNet-V2", MobileNetV2, "mnv2", 16, MNV2_DW, 52)
-V3L = Zoo("MobileNet-V3-Large", MobileNetV3Large, "mnv3l", 18, V3L_DW, 46, dw5=V3L_DW5)
+V3L = Zoo("MobileNet-V3-Large", MobileNetV3Large, "mnv3l", 18, V3L_DW, 46, dw5=V3L_DW5,
+          bias=V3L_BIAS)
 LITE0 = Zoo("EfficientNet-Lite0", EfficientNetLite0, "enl0", 181, LITE0_DW, 49, dw5=LITE0_DW5)
 RESNET50 = Zoo("ResNet-50", ResNet50, "resnet50", 182, [], 49)
 MNIST_TWIN = "dorknet_tpu_torch.examples.MNIST_basic_convnet"
@@ -2686,14 +2742,14 @@ MNIST_BN_LAYERS = 5
 
 def kernel_counts():
     """{kernel name: launches} of every kernel of the port."""
-    return {k.__name__: k.launches for k in ALL_KERNELS}
+    return {k.__name__: k.launches for k in ALL_KERNELS + (bias_act,)}
 
 
 def counted(fn):
     """fn() with every launch count set to 0 just before and read just
     after (the card synchronised): (its result, {name: launches})."""
     torch.cuda.synchronize()
-    reset_launches(ALL_KERNELS)
+    reset_launches(ALL_KERNELS + (bias_act,))
     out = fn()
     torch.cuda.synchronize()
     return out, kernel_counts()
@@ -2815,12 +2871,21 @@ def phase_zoo_serving(z, label, runs=("unfolded", "folded"), timed=True):
     runners = {r: InferenceRunner(net_gpu, batch_size=BATCH, device=DEVICE,
                                   fold_bn=r == "folded") for r in runs}
     want = [z.dw_layers, 0, 0, 0]
-    launches, probs = {}, {}
+    launches, probs, bias_by_act = {}, {}, {}
     for name, runner in runners.items():
+        sequence.run_layers.fused_bias = dict.fromkeys(bias_act.launches_by_act, 0)
         probs[name], launches[name] = counted(lambda: runner.predict_probs(X))
         got = [launches[name][k.__name__] for k in TRAIN_KERNELS]
-        log("  {}: launches forward/dx/dw/bn_stats {} (want {})".format(name, got, want))
+        by_act = dict(bias_act.launches_by_act)
+        log("  {}: launches forward/dx/dw/bn_stats {} (want {}); bias_act by act {}".format(
+            name, got, want, by_act))
         require(got == want, "{} {}: a layer missed its kernel".format(z.name, name))
+        require(by_act == sequence.run_layers.fused_bias,
+                "{} {}: a biased layer missed its bias pass".format(z.name, name))
+        if z.bias and name == "folded":
+            require(by_act == z.bias_want, "{} {}: bias passes {}, want {}".format(
+                z.name, name, by_act, z.bias_want))
+        bias_by_act[name] = by_act
         if z.dw_layers:
             require_vector_route("{} {}".format(z.name, name))
         require(probs[name].shape == (BATCH, z.classes) and np.isfinite(probs[name]).all(),
@@ -2835,7 +2900,7 @@ def phase_zoo_serving(z, label, runs=("unfolded", "folded"), timed=True):
                           BATCH, err["folded_vs_unfolded"]) if len(runs) == 2 else "",
                       [round(float(p), 4) for p in probs[runs[0]][:4].max(1)]))
     require(max(err.values()) <= 1e-4, "{} serving disagrees".format(z.name))
-    numbers = dict(max_abs_prob_err=err)
+    numbers = dict(max_abs_prob_err=err, bias_act_by_act=bias_by_act)
     if not timed:
         return launches, numbers
     x = torch.from_numpy(X).to(DEVICE)
@@ -2866,6 +2931,7 @@ def phase_zoo_train(z, label, twin=True):
     log("  step: loss {:.6f}, launches forward/dx/dw/bn_stats {} (want {})".format(
         float(loss), got, z.want))
     require(got == z.want, "{}: a layer missed its kernel".format(z.name))
+    require(counts["bias_act"] == 0, "{}: a training step launched bias_act".format(z.name))
     if z.dw_layers:
         require_vector_route("{} step".format(z.name), kernels=KERNELS)
     require(np.isfinite(float(loss)), "non-finite loss")
@@ -2942,8 +3008,8 @@ def phase_zoo_captured(z, label, full=True):
     # adoption, warm-up and capture: three eager steps' launches, then replays
     _, run = counted(lambda: [captured.step(x, yy) for _ in range(4)])
     log("  the captured trainer's first 4 calls: launches {}".format(run))
-    require([run[k.__name__] for k in TRAIN_KERNELS] == [3 * n for n in z.want],
-            "the captured trainer's eager steps")
+    require([run[k.__name__] for k in TRAIN_KERNELS] == [3 * n for n in z.want]
+            and run["bias_act"] == 0, "the captured trainer's eager steps")
     pool = pool_bytes(captured._pool) / 1e6
     if not full:
         ms = measure_device_ms(lambda: captured.step(x, yy), runs=10, warmup=2)
@@ -3444,6 +3510,49 @@ def phase_bn_act():
     return out
 
 
+# ---- phase 19c: the bias pass of the served forward --------------------------
+BULK_BATCH = 256  # the bulk serving cell's batch
+
+
+def phase_bias_act():
+    """Phase 19c. Returns the numbers."""
+    log("== phase 19c: the bias pass (bias_act) at MobileNet-V3-Large's {} served layers, "
+        "batch {}, fp32, against the eager add and activation".format(
+            sum(n for *_, n in V3L_BIAS), BULK_BATCH))
+    log("card:", card_line())
+    layers, elems = [], 0
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    for shape, act, n in V3L_BIAS:
+        for _ in range(n):
+            y = torch.randn((BULK_BATCH,) + shape, generator=g, device=DEVICE) * 3.0
+            layers.append((y, torch.randn(shape[-1], generator=g, device=DEVICE), act))
+            elems += y.numel()
+    with torch.no_grad():
+        for i, a in enumerate(layers):
+            require(torch.equal(bias_act(*a), bias_act_plain(*a)),
+                    "bias_act at layer {} {}: not bit-equal to the eager ops".format(
+                        i, tuple(a[0].shape)))
+        calls = dict(fused=[lambda a=a: bias_act(*a) for a in layers],
+                     unfused=[lambda a=a: bias_act_plain(*a) for a in layers])
+        turns = [device_ms(calls[k], inner=1) for k in ("unfused", "fused", "fused", "unfused")]
+        # the host's µs to queue the 48 layers once, in turns
+        host = [enqueue_us(lambda k=k: [fn() for fn in calls[k]], calls=5)
+                for k in ("unfused", "fused", "fused", "unfused")]
+    bound = 2 * elems * 4 / HBM_BYTES_PER_S * 1e3
+    log("  {} layers ({:.3f} GB a pass), every output bit-equal to the eager ops: bias_act "
+        "{:.4f} / {:.4f} ms ({:.1%} of the 2-pass bound {:.4f} ms), eager add and activation "
+        "{:.4f} / {:.4f} ms (device ms, in turns); host µs to queue the 48: bias_act {:.0f} / "
+        "{:.0f}, eager {:.0f} / {:.0f}".format(
+            len(layers), elems * 4 / 1e9, turns[1], turns[2], bound / min(turns[1:3]), bound,
+            turns[0], turns[3], host[1], host[2], host[0], host[3]))
+    del layers, calls
+    torch.cuda.empty_cache()
+    return dict(layers=sum(n for *_, n in V3L_BIAS), batch=BULK_BATCH, gb_a_pass=elems * 4 / 1e9,
+                fused_device_ms=[turns[1], turns[2]], unfused_device_ms=[turns[0], turns[3]],
+                fused_bound_ms=bound, fused_host_us=[host[1], host[2]],
+                unfused_host_us=[host[0], host[3]])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a "
@@ -3489,6 +3598,7 @@ def main():
     p18["deep_zoo"] = p18e
     bn_train = phase_bn_train()
     bn_act = phase_bn_act()
+    bias = phase_bias_act()
 
     bound_ms, bound_by = flagship_bound_ms()
     dw_bound, dw_by = flagship_bound_ms(lambda C: 9 * C * 4)
@@ -3534,6 +3644,7 @@ def main():
     log(json.dumps({"phase17": p17}))
     log(json.dumps({"phase18": p18}))
     log(json.dumps({"phase19b": bn_act}))
+    log(json.dumps({"phase19c": bias}))
     replay_names = dict(zip((k.__name__ for k in TRAIN_KERNELS), (n for n, _ in MNV2.replay)))
     kernels = [
         dict(name="depthwise3x3", route="cuda",

@@ -1,6 +1,7 @@
 // Train-mode batch norm after its statistics: the normalise (bn_apply) and
 // the two-reduction backward (bn_bwd_reduce, bn_bwd_dx) of x (..., C), M
-// rows of C channels.
+// rows of C channels; and the same pointwise pass as a test-mode layer's
+// bias add and activation (bias_act).
 //
 // Replaces no TPU kernel. The JAX package leaves these passes to XLA, which
 // fuses dorknet_tpu/ops/norm.py:_bn_core_fwd_impl and _bn_core_bwd into a
@@ -65,9 +66,19 @@
 // In fp32 dy is the unfused autograd chain's value; in bf16 it stays in
 // fp32, where the unfused chain rounds it to bf16 before the batch norm.
 //
-// C entry points: dorknet_bn_apply, dorknet_bn_bwd_reduce, dorknet_bn_bwd_dx.
-// Each launches on the caller's stream, does not synchronise, allocates
-// nothing, and returns cudaGetLastError() after its launches.
+// The bias pass (bias_act). A test-mode conv or dense layer (a folded batch
+// norm's among them) adds its bias and applies the activation after it in
+// one read and one write of its output: out = act(y + b[c]), the add in
+// fp32, then rounded and activated as the unfused ops do (act_out). It is
+// bn_apply's pointwise loop with y + b where bn_apply has the affine
+// normalise. Replaces no TPU kernel: XLA fuses the JAX package's bias add
+// and activation into neighbouring passes; as eager PyTorch ops they took 2
+// activation passes for the add, 2 more for ReLU and 11 for hard-swish.
+//
+// C entry points: dorknet_bn_apply, dorknet_bn_bwd_reduce, dorknet_bn_bwd_dx,
+// dorknet_bias_act. Each launches on the caller's stream, does not
+// synchronise, allocates nothing, and returns cudaGetLastError() after its
+// launches.
 
 #include <type_traits>
 
@@ -148,7 +159,7 @@ template <typename T, Act A> __device__ __forceinline__ float act_out(float y) {
         return y;
     } else if constexpr (A == Act::kRelu) {
         const float r = round_to<T>(y);
-        return r < 0.0f ? 0.0f : r;  // torch.relu: keeps -0 and NaN
+        return r <= 0.0f ? 0.0f : r;  // torch.relu on the card: NaN kept, -0 gives +0
     } else {
         const float r = round_to<T>(y);
         float t, h;
@@ -179,6 +190,34 @@ template <typename T, Act A> __device__ __forceinline__ float act_grad(float g, 
     }
 }
 
+// The pointwise kernels' grid-stride loop: thread t (< G) meets the
+// vectors t, t + G, t + 2G, ... of the flat array x, all of channel vector
+// t mod C/V, two in flight, and writes f(v, k) of element k of each to y.
+template <typename T, int V, typename F>
+__device__ __forceinline__ void map_vectors(const T* __restrict__ x, T* __restrict__ y,
+                                            int64_t t, int64_t nvec, int64_t G, F f) {
+    int64_t i = t;
+    for (; i + G < nvec; i += 2 * G) {
+        float a[V], a2[V];
+        Chan<T, V>::load(x + i * V, a);
+        Chan<T, V>::load(x + (i + G) * V, a2);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            a[k] = f(a[k], k);
+            a2[k] = f(a2[k], k);
+        }
+        Chan<T, V>::store(y + i * V, a);
+        Chan<T, V>::store(y + (i + G) * V, a2);
+    }
+    if (i < nvec) {
+        float a[V];
+        Chan<T, V>::load(x + i * V, a);
+#pragma unroll
+        for (int k = 0; k < V; ++k) a[k] = f(a[k], k);
+        Chan<T, V>::store(y + i * V, a);
+    }
+}
+
 // ---- forward --------------------------------------------------------------
 
 // norm is (2, C): this kernel writes mean (a copy) and inv there, the
@@ -206,27 +245,24 @@ bn_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
             norm[C + c0 + k] = iv[k];
         }
     }
-    int64_t i = t;
-    for (; i + G < nvec; i += 2 * G) {
-        float a[V], a2[V];
-        Chan<T, V>::load(x + i * V, a);
-        Chan<T, V>::load(x + (i + G) * V, a2);
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-            a[k] = act_out<T, A>(bn_affine(bn_xhat(a[k], m[k], iv[k]), g[k], b[k]));
-            a2[k] = act_out<T, A>(bn_affine(bn_xhat(a2[k], m[k], iv[k]), g[k], b[k]));
-        }
-        Chan<T, V>::store(y + i * V, a);
-        Chan<T, V>::store(y + (i + G) * V, a2);
-    }
-    if (i < nvec) {
-        float a[V];
-        Chan<T, V>::load(x + i * V, a);
-#pragma unroll
-        for (int k = 0; k < V; ++k)
-            a[k] = act_out<T, A>(bn_affine(bn_xhat(a[k], m[k], iv[k]), g[k], b[k]));
-        Chan<T, V>::store(y + i * V, a);
-    }
+    map_vectors<T, V>(x, y, t, nvec, G, [&](float v, int k) {
+        return act_out<T, A>(bn_affine(bn_xhat(v, m[k], iv[k]), g[k], b[k]));
+    });
+}
+
+// ---- the bias pass ------------------------------------------------------------
+
+template <typename T, int V, Act A>
+__global__ void __launch_bounds__(PW_THREADS)
+bias_act_kernel(const T* __restrict__ y, const float* __restrict__ bias, T* __restrict__ out,
+                int64_t nvec, int Cv, int64_t G) {
+    const int64_t t = (int64_t)blockIdx.x * PW_THREADS + threadIdx.x;
+    if (t >= G) return;
+    float b[V];
+    load_chan<V>(bias, (int)(t % Cv) * V, b);
+    map_vectors<T, V>(y, out, t, nvec, G, [&](float v, int k) {
+        return act_out<T, A>(__fadd_rn(v, b[k]));
+    });
 }
 
 // ---- backward, pass 1: partial sums of dy and dy * x^ ----------------------
@@ -428,6 +464,16 @@ cudaError_t apply_launch(const void* x, const float* mean, const float* var,
 }
 
 template <typename T, int V, Act A>
+cudaError_t bias_act_launch(const void* y, const float* bias, void* out, int64_t M, int C,
+                            int64_t G, cudaStream_t s) {
+    if (!pointwise_ok(M, C, V, G)) return cudaErrorInvalidValue;
+    if (V > 1 && !(aligned16(y) && aligned16(out))) return cudaErrorInvalidValue;
+    bias_act_kernel<T, V, A><<<pointwise_blocks(G), PW_THREADS, 0, s>>>(
+        static_cast<const T*>(y), bias, static_cast<T*>(out), M * C / V, C / V, G);
+    return cudaGetLastError();
+}
+
+template <typename T, int V, Act A>
 cudaError_t reduce_launch(const void* gy, const void* x, const float* norm,
                           const float* gamma, const float* beta, float* partials,
                           float* grads, float* coef, int64_t M, int C, int TW, int R, int P,
@@ -551,6 +597,20 @@ int dorknet_bn_bwd_dx(const void* gy, const void* x, const void* norm, const voi
     return (int)dispatch(dtype, vec, act, [&](auto type, auto width, auto epi) {
         return dx_launch<BN_ROUTE(type, width, epi)>(
             gy, x, BN_F(norm), BN_F(coef), BN_F(gamma), BN_F(beta), dx, M, C, threads, s);
+    });
+}
+
+// out = act(y + bias) in y's dtype, y and out (M, C) contiguous, bias
+// float32 (C,); dtype, vec, act and threads as dorknet_bn_apply's.
+int dorknet_bias_act(const void* y, const void* bias, void* out, long long M, int C, int vec,
+                     int act, long long threads, int dtype, void* stream, int device) {
+    if (vec != 0 && vec != 1) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return (int)dispatch(dtype, vec, act, [&](auto type, auto width, auto epi) {
+        return bias_act_launch<BN_ROUTE(type, width, epi)>(y, BN_F(bias), out, M, C, threads,
+                                                          s);
     });
 }
 

@@ -33,9 +33,12 @@ class DenseLayer(Layer):
             self.layer_name, self.incoming_chans, self.output_dim,
             repr(self.weight_regulariser))
 
-    def fapply(self, x, train=False):
+    def fapply(self, x, train=False, act=None):
+        """``act`` ("none", "relu" or "hswish", with a bias) adds the bias and
+        applies the activation that follows in one pass where no gradient is
+        needed (``layers/sequence.py`` passes it in test mode)."""
         b = self.bias if self.with_bias else None
-        return dense(x, self.weights, b)
+        return dense(x, self.weights, b, act=act)
 
     def save_to_h5(self, open_f, save_grads=True):
         h5io.create_layer_info(

@@ -43,10 +43,13 @@ class DepthwiseConvLayer(Layer):
             self.stride, self.padding, self.with_bias, repr(self.weight_regulariser))
         return out
 
-    def fapply(self, x, train=False):
+    def fapply(self, x, train=False, act=None):
+        """``act`` ("none", "relu" or "hswish", with a bias) adds the bias and
+        applies the activation that follows in one pass where no gradient is
+        needed (``layers/sequence.py`` passes it in test mode)."""
         b = self.bias if self.with_bias else None
         return depthwise_conv2d(x, self.weights, b,
-                                stride=self.stride, padding=self.padding)
+                                stride=self.stride, padding=self.padding, act=act)
 
     def save_to_h5(self, open_f, save_grads=True):
         h5io.create_layer_info(

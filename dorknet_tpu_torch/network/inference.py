@@ -202,9 +202,11 @@ class InferenceRunner:
         """Serialise the serving program, the test-mode forward of the served
         copy (folded when the runner folds), as a ``torch.export`` program
         with the current parameters and running statistics in it, traced
-        under the compute dtype set now. Every depthwise layer is a call of
-        the registered op ``dorknet::depthwise3x3``, so the reloaded program
-        runs the hand-written kernel.
+        under the compute dtype set now. Every 3x3 depthwise layer is a call
+        of the registered op ``dorknet::depthwise3x3``, and every biased
+        layer's bias add, with the ReLU or hard-swish after it, one of
+        ``dorknet::bias_act``, so the reloaded program runs the hand-written
+        kernels.
 
         input_hw: the spatial size the program is specialised to.
         polymorphic_batch=True exports with a symbolic batch (any size from
@@ -212,7 +214,7 @@ class InferenceRunner:
         ``path`` when given, with a ``<path>.meta.json`` sidecar (shapes,
         dtypes, platforms; informational, not needed to load). Reload with
         ``load_serving_program`` or ``load_serving_artifact``, which need
-        torch and the op's registration but no model code. The program runs
+        torch and the ops' registrations but no model code. The program runs
         on the runner's device: there is no cross-device export."""
         x = torch.zeros((self.batch_size, int(channels)) + tuple(int(d) for d in input_hw),
                         dtype=torch.float32, device=self.device)

@@ -16,14 +16,25 @@ added in fp32.
 - ``pointwise_conv2d`` and ``dense`` are ``torch.matmul``; stride > 1
   subsamples first (output spatial size ceil(H/s)), as the reference does.
 
+Each takes ``act``, the activation that follows the layer (``"none"``,
+``"relu"`` or ``"hswish"``; ``layers/sequence.run_layers`` hands it over in
+test mode), with a bias. Where no gradient is needed, the bias add and the
+activation are one hand-written pass, ``bias_act`` (``ops/cuda/bias_act.py``),
+bit-equal to the add then the activation layer; where one is needed they are
+``bias_add`` then the activation's ops under autograd. With ``act=None``
+(the default) only the bias is added, by ``bias_add``.
+
 Everything but the depthwise kernels is differentiated by autograd, as the
-JAX package leaves those ops to XLA's autodiff.
+JAX package leaves those ops to XLA's autodiff (``bias_act`` runs only where
+no gradient is needed).
 """
 
 import torch
 import torch.nn.functional as F
 
 from dorknet_tpu_torch.config import get_compute_dtype
+from dorknet_tpu_torch.ops.activation import BN_ACTIVATIONS
+from dorknet_tpu_torch.ops.cuda.bias_act import bias_act, bias_add
 from dorknet_tpu_torch.ops.cuda.depthwise import depthwise3x3
 
 
@@ -35,11 +46,14 @@ def _cast_in(x):
 _cast_out = _cast_in  # activations flow in the compute dtype
 
 
-def _bias_add(y, b, bshape):
-    """Bias add in fp32, result in y's dtype."""
-    if y.dtype == torch.float32:
-        return y + b.reshape(bshape)
-    return (y.float() + b.reshape(bshape)).to(y.dtype)
+def _bias_act(y, b, act):
+    """y + b (fp32 add, y's dtype), then ``act`` when one is given: one
+    ``bias_act`` pass where no gradient is needed, else the eager chain."""
+    if act is None:
+        return y if b is None else bias_add(y, b)
+    if torch.is_grad_enabled() and (y.requires_grad or b.requires_grad):
+        return BN_ACTIVATIONS[act](bias_add(y, b))
+    return bias_act(y, b, act)
 
 
 def _nhwc_conv(x, w_oihw, stride, padding, groups=1):
@@ -50,39 +64,28 @@ def _nhwc_conv(x, w_oihw, stride, padding, groups=1):
     return _cast_out(y.permute(0, 2, 3, 1).contiguous())
 
 
-def conv2d(x, w_oihw, b=None, stride=1, padding=0):
+def conv2d(x, w_oihw, b=None, stride=1, padding=0, act=None):
     """Standard conv. x: (N,H,W,C); w_oihw: (O,I,fh,fw). Returns (N,P,Q,O)."""
-    y = _nhwc_conv(x, w_oihw, stride, padding)
-    if b is not None:
-        y = _bias_add(y, b, (1, 1, 1, -1))
-    return y
+    return _bias_act(_nhwc_conv(x, w_oihw, stride, padding), b, act)
 
 
-def depthwise_conv2d(x, w_cfhfw, b=None, stride=1, padding=1):
+def depthwise_conv2d(x, w_cfhfw, b=None, stride=1, padding=1, act=None):
     """Depthwise conv. x: (N,H,W,C); w: (C,fh,fw). Returns (N,P,Q,C)."""
     if stride in (1, 2) and padding == 1 and tuple(w_cfhfw.shape[1:]) == (3, 3):
         y = depthwise3x3(_cast_in(x), w_cfhfw.float(), stride)
     else:
         y = _nhwc_conv(x, w_cfhfw.unsqueeze(1), stride, padding,
                        groups=w_cfhfw.shape[0])
-    if b is not None:
-        y = _bias_add(y, b, (1, 1, 1, -1))
-    return y
+    return _bias_act(y, b, act)
 
 
-def pointwise_conv2d(x, w_oc, b=None, stride=1):
+def pointwise_conv2d(x, w_oc, b=None, stride=1, act=None):
     """1x1 conv as one GEMM over (N*H*W, C) @ (C, O), subsampling first."""
     if stride > 1:
         x = x[:, ::stride, ::stride, :]
-    y = _cast_out(torch.matmul(_cast_in(x), _cast_in(w_oc).t()))
-    if b is not None:
-        y = _bias_add(y, b, (1, 1, 1, -1))
-    return y
+    return _bias_act(_cast_out(torch.matmul(_cast_in(x), _cast_in(w_oc).t())), b, act)
 
 
-def dense(x, w_io, b=None):
+def dense(x, w_io, b=None, act=None):
     """Dense: (N,in) @ (in,out) + b."""
-    y = _cast_out(torch.matmul(_cast_in(x), _cast_in(w_io)))
-    if b is not None:
-        y = _bias_add(y, b, (1, -1))
-    return y
+    return _bias_act(_cast_out(torch.matmul(_cast_in(x), _cast_in(w_io))), b, act)

@@ -86,6 +86,8 @@ def _bind(lib):
     lib.dorknet_bn_bwd_dx.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll, ci, ci, ci, ll, ci, vp,
                                       ci]
     lib.dorknet_bn_bwd_dx.restype = ci
+    lib.dorknet_bias_act.argtypes = [vp, vp, vp, ll, ci, ci, ci, ll, ci, vp, ci]
+    lib.dorknet_bias_act.restype = ci
     lib.dorknet_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
                                    ci, vp, ci]
     lib.dorknet_matmul.restype = ci

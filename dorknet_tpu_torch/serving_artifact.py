@@ -4,13 +4,14 @@
 
 An artifact is a ``torch.export`` program (``torch.export.save``) of the
 runner's test-mode forward, with its weights and running statistics in it.
-Loading it needs torch and the registration of the one custom op such a
+Loading it needs torch and the registration of the two custom ops such a
 program calls, ``dorknet::depthwise3x3`` (the hand-written depthwise
-forward, ``ops/cuda/depthwise.py``), which this module imports; it imports
-nothing of the model zoo, the layers, the network or the checkpoints. (The
-JAX package's artifacts need only jax: their StableHLO carries its Pallas
-kernel inside.) A program runs on the device it was exported on: there is no
-cross-device export.
+forward, ``ops/cuda/depthwise.py``) and ``dorknet::bias_act`` (a biased
+layer's bias add and the activation after it, ``ops/cuda/bias_act.py``),
+which this module imports; it imports nothing of the model zoo, the layers,
+the network or the checkpoints. (The JAX package's artifacts need only jax:
+their StableHLO carries its Pallas kernel inside.) A program runs on the
+device it was exported on: there is no cross-device export.
 """
 
 import io
@@ -18,7 +19,9 @@ import io
 import numpy as np
 import torch
 
-# registers dorknet::depthwise3x3, which the exported graphs call
+# register dorknet::bias_act and dorknet::depthwise3x3, which the exported
+# graphs call
+import dorknet_tpu_torch.ops.cuda.bias_act  # noqa: F401
 import dorknet_tpu_torch.ops.cuda.depthwise  # noqa: F401
 
 FORMAT = "torch.export"

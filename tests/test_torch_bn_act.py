@@ -157,13 +157,14 @@ def test_backward_wrappers_check_act():
 
 
 def test_new_kernels_are_classed_as_elementwise():
-    """Every kernel of csrc/bn_train.cu, in every instantiation as the
-    profiler names it, falls in the class elementwise_share reads."""
+    """Every kernel of csrc/bn_train.cu (the test-mode bias pass among them),
+    in every instantiation as the profiler names it, falls in the class
+    elementwise_share reads."""
     src = (Path(__file__).resolve().parents[1] / "dorknet_tpu_torch" / "csrc"
            / "bn_train.cu").read_text()
     kernels = re.findall(r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(", src)
-    assert sorted(kernels) == ["bn_apply_kernel", "bn_bwd_dx_kernel", "bn_bwd_finish_kernel",
-                               "bn_bwd_reduce_kernel"]
+    assert sorted(kernels) == ["bias_act_kernel", "bn_apply_kernel", "bn_bwd_dx_kernel",
+                               "bn_bwd_finish_kernel", "bn_bwd_reduce_kernel"]
     names = ["void (anonymous namespace)::{}<{}, {}, ((anonymous namespace)::Act){}>"
              "(float const*, float const*, float*, long, int, long)".format(k, t, v, a)
              for k in kernels for t, v in (("float", 1), ("float", 4), ("__nv_bfloat16", 1),

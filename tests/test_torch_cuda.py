@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402
+
 from dorknet_tpu_torch.data_loading.device_augment import (  # noqa: E402
     draw_batch_params, train_pipeline)
 from dorknet_tpu_torch.models import MobileNetV3Large, ResNet18  # noqa: E402
@@ -22,6 +24,7 @@ from dorknet_tpu_torch.ops.cuda.bn_stats import (  # noqa: E402
     batch_norm_stats, batch_norm_stats_plain)
 from dorknet_tpu_torch.ops import norm as norm_ops  # noqa: E402
 from dorknet_tpu_torch.ops.activation import hard_sigmoid  # noqa: E402
+from dorknet_tpu_torch.ops.cuda.bias_act import bias_act, bias_act_plain  # noqa: E402
 from dorknet_tpu_torch.ops.cuda.bn_train import (  # noqa: E402
     _dy, bn_apply, bn_apply_plain, bn_bwd_dx, bn_bwd_dx_plain, bn_bwd_reduce)
 from dorknet_tpu_torch.ops.cuda.depthwise import (  # noqa: E402
@@ -555,6 +558,96 @@ def test_eager_step_fuses_each_bn_activation_pair(cuda, make, classes, by_act):
     torch.cuda.synchronize()
     assert np.isfinite(float(loss))
     assert {k: bn_apply.launches_by_act[k] - before[k] for k in before} == by_act
+
+
+# the bias pass: MobileNet-V3-Large's served output shapes (chip_smoke.V3L_BIAS)
+# and odd C, the batch axis left out
+BIAS_SHAPES = sorted({shape for shape, _, _ in chip_smoke.V3L_BIAS}) + [
+    (5, 5, 1), (3, 7, 13), (9, 3), (1001,), (4, 4, 12)]
+# values of y + b placed in the first rows, -0.0 in channel 0
+BIAS_EDGES = (-0.0, float("nan"), -3.0, 0.0, 3.0, 6.0)
+
+
+def _bias_inputs(device, shape, dtype):
+    """y (8, *shape) and b, b in eighths with b[0] = -0.0, so that y + b is
+    exactly each of BIAS_EDGES in channel r mod C of row r."""
+    g = torch.Generator(device=device).manual_seed(sum(shape))
+    C = shape[-1]
+    b = torch.round(torch.randn(C, generator=g, device=device) * 24.0) / 8.0
+    b[0] = -0.0
+    y = torch.randn((8,) + shape, generator=g, device=device) * 3.0
+    flat = y.view(-1, C)
+    for r, e in enumerate(BIAS_EDGES):
+        c = r % C
+        flat[r, c] = e if c == 0 or e != e else e - b[c]
+    return y.to(dtype), b
+
+
+def _bits_equal(a, b):
+    """Bit-equal where not NaN (-0.0 included), NaN in the same places."""
+    nan = torch.isnan(a)
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(ints), b[~nan].view(ints)))
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "hswish"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BIAS_SHAPES)
+def test_bias_act_kernel_matches_plain_on_both_routes(cuda, shape, dtype, act):
+    """At batch 8: the kernel bit-equal to the plain version (the eager add
+    and activation on the card), on the vector route where C takes one and
+    on the scalar route (a misaligned copy of y); one launch counted under
+    its act a call."""
+    y, b = _bias_inputs(cuda, shape, dtype)
+    want = bias_act_plain(y, b, act)
+    buf = torch.empty(y.numel() + 1, dtype=dtype, device=cuda)
+    shifted = buf[1:].view(y.shape)
+    shifted.copy_(y)
+    assert shifted.data_ptr() % 16 != 0
+    before = dict(bias_act.launches_by_act)
+    with torch.no_grad():
+        got, got_scalar = bias_act(y, b, act), bias_act(shifted, b, act)
+    torch.cuda.synchronize()
+    for out in (got, got_scalar):
+        differ = (out.view(-1) != want.view(-1)) | (torch.signbit(out) != torch.signbit(want)).view(-1)
+        differ &= ~(torch.isnan(out) & torch.isnan(want)).view(-1)
+        first = differ.nonzero()[:3].flatten().tolist()
+        assert _bits_equal(out, want), (first, y.view(-1)[first].tolist(),
+                                        out.view(-1)[first].tolist(), want.view(-1)[first].tolist())
+    assert {k: bias_act.launches_by_act[k] - before[k] for k in before} == dict(
+        dict.fromkeys(before, 0), **{act: 2})
+
+
+def test_bias_act_kernel_refuses_what_it_does_not_take(cuda):
+    y, b = _bias_inputs(cuda, (4, 4, 8), torch.float32)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="contiguous"):
+            bias_act(y.transpose(1, 2), b, "relu")
+        with pytest.raises(ValueError, match="b must be float32"):
+            bias_act(y, b.cpu(), "relu")
+        assert bias_act(y[:0], b, "hswish").shape == (0, 4, 4, 8)
+
+
+def test_folded_v3_large_pairs_each_biased_layer_on_card(cuda, monkeypatch):
+    """A BN-folded MobileNet-V3-Large (64 px, batch 2) served on the card:
+    48 bias passes a dispatch (none 16, relu 11, hswish 21), the probs
+    bit-equal to its layers run one by one, no pairing."""
+    from dorknet_tpu_torch.layers import sequence
+    from dorknet_tpu_torch.network import InferenceRunner
+
+    np.random.seed(0)
+    net = MobileNetV3Large("mnv3l", num_classes=1000)
+    seed_serving_weights(net, seed=0, calib_hw=(64, 64))
+    X = np.random.RandomState(1).randn(2, 3, 64, 64).astype(np.float32)
+    runner = InferenceRunner(net, batch_size=2, device=cuda, fold_bn=True)
+    before = dict(bias_act.launches_by_act)
+    paired = runner.predict_probs(X)
+    torch.cuda.synchronize()
+    assert {k: bias_act.launches_by_act[k] - before[k] for k in before} == \
+        chip_smoke.V3L.bias_want == {"none": 16, "relu": 11, "hswish": 21}
+    monkeypatch.setattr(sequence, "BIASED", ())
+    np.testing.assert_array_equal(runner.predict_probs(X), paired)
 
 
 GEMM_CASES = [(64, 32, 48), (300, 512, 120), (8, 16, 128), (1, 1, 1), (129, 7, 130),

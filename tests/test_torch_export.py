@@ -3,8 +3,9 @@
 tests/test_export.py that need neither jax serialisation nor int8, on a
 narrow depthwise-separable network (the JAX file's MNISTNet has no depthwise
 layer and is not ported). Each artifact's graph calls the registered op
-``dorknet::depthwise3x3`` at every depthwise layer, and its probs are the
-runner's within 1e-6 (bit-equal at the runner's own batch). Also the export
+``dorknet::depthwise3x3`` at every depthwise layer and ``dorknet::bias_act``
+at every biased layer of its layer lists, and its probs are the runner's
+within 1e-6 (bit-equal at the runner's own batch). Also the export
 CLI, from a json+h5 pair the JAX package wrote, and the serving demo at a
 small size."""
 
@@ -38,6 +39,11 @@ from tests.test_torch_trainer import batches, narrow_net  # noqa: E402
 
 HW = (17, 17)
 DW_LAYERS = 4  # narrow_net's depthwise layers
+# narrow_net's biased layers once folded: conv0 and pw0 (each with its ReLU),
+# each block's dw1, pw1 (with its ReLU) and dw2, and the dense head; the
+# block's skip projection adds its bias outside the layer list. Unfolded,
+# each block's dw2 and the dense head.
+BIASED_FOLDED, BIASED_UNFOLDED = 9, 3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -54,9 +60,12 @@ def _runner(seed, **kw):
     return InferenceRunner(net, batch_size=8, device="cpu", **kw), X
 
 
-def _op_calls(blob):
-    return sum(n.target is torch.ops.dorknet.depthwise3x3.default
-               for n in deserialize(blob).graph.nodes)
+def _op_calls(blob, op=torch.ops.dorknet.depthwise3x3.default):
+    return sum(n.target is op for n in deserialize(blob).graph.nodes)
+
+
+def _bias_calls(blob):
+    return _op_calls(blob, torch.ops.dorknet.bias_act.default)
 
 
 def test_artifact_roundtrip_matches_runner(tmp_path):
@@ -64,6 +73,7 @@ def test_artifact_roundtrip_matches_runner(tmp_path):
     path = str(tmp_path / "narrow.pt2")
     data = runner.export_program(HW, path=path)
     assert len(data) > 0 and _op_calls(data) == DW_LAYERS
+    assert _bias_calls(data) == BIASED_FOLDED
 
     art = load_serving_artifact(path)
     assert isinstance(art, ServingArtifact)
@@ -82,7 +92,8 @@ def test_artifact_roundtrip_matches_runner(tmp_path):
 def test_export_meta_sidecar(tmp_path):
     runner, _ = _runner(0)
     path = str(tmp_path / "m.pt2")
-    assert _op_calls(runner.export_program(HW, path=path)) == DW_LAYERS
+    data = runner.export_program(HW, path=path)
+    assert _op_calls(data) == DW_LAYERS and _bias_calls(data) == BIASED_UNFOLDED
     with open(path + ".meta.json") as f:
         meta = json.load(f)
     assert meta["format"] == "torch.export"
@@ -110,7 +121,7 @@ def test_export_polymorphic_batch():
     1e-6 (another batch size sums the GEMMs in other blocks)."""
     runner, X = _runner(2, fold_bn=True)
     data = runner.export_program(HW, polymorphic_batch=True)
-    assert _op_calls(data) == DW_LAYERS
+    assert _op_calls(data) == DW_LAYERS and _bias_calls(data) == BIASED_FOLDED
     art = load_serving_artifact(data)
     assert art.polymorphic_batch and art.batch_size is None
     for n in (1, 3, 7, 8, 11):
@@ -153,7 +164,7 @@ def test_predict_probs_empty_input():
 def test_export_respects_compute_dtype_policy():
     """The artifact keeps the compute dtype set at export time: setting the
     global dtype back afterwards does not change what it serves. In bf16
-    flow the depthwise layers still call the op."""
+    flow the depthwise and biased layers still call the ops."""
     runner, X = _runner(4, fold_bn=True)
     p32 = runner.predict_probs(X)
     config.set_compute_dtype(torch.bfloat16)
@@ -163,7 +174,7 @@ def test_export_respects_compute_dtype_policy():
     finally:
         config.set_compute_dtype(torch.float32)
     assert np.abs(p_bf16 - p32).max() > 1e-4  # bf16 flow did change the probs
-    assert _op_calls(data) == DW_LAYERS
+    assert _op_calls(data) == DW_LAYERS and _bias_calls(data) == BIASED_FOLDED
     np.testing.assert_array_equal(p_bf16, load_serving_artifact(data).predict_probs(X))
 
 

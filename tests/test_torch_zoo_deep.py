@@ -257,9 +257,9 @@ def kernel_calls(monkeypatch):
             return fn(*args, **kwargs)
         return wrapper
 
-    def recorded(x, w, b=None, stride=1, padding=1):
+    def recorded(x, w, b=None, stride=1, padding=1, act=None):
         calls["layers"].append((x.shape[1], x.shape[3], stride, w.shape[-1]))
-        return depthwise_conv2d(x, w, b, stride=stride, padding=padding)
+        return depthwise_conv2d(x, w, b, stride=stride, padding=padding, act=act)
 
     depthwise_conv2d = dw_layer.depthwise_conv2d
     for name, attr in (("fwd", "depthwise3x3_plain"), ("dx", "depthwise3x3_dx_plain"),
