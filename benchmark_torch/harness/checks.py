@@ -27,8 +27,10 @@ def worst_leaf(prog, ref):
     """The largest |norm(prog[leaf]) - norm(ref[leaf])| over the leaves,
     each measured against the larger of the reference's norm of that leaf
     and the median leaf's. ``prog`` and ``ref`` map leaf -> tensor or
-    norm. Returns (gap, leaf)."""
+    norm. Returns (gap, leaf); with no leaves, a ValueError."""
     leaves = list(ref)
+    if not leaves:
+        raise ValueError("worst_leaf: no leaves to compare")
     rn = {k: ref[k] if isinstance(ref[k], float) else _norm(ref[k]) for k in leaves}
     pn = {k: prog[k] if isinstance(prog[k], float) else _norm(prog[k]) for k in leaves}
     floor = statistics.median(rn.values())

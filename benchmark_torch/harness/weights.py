@@ -3,12 +3,13 @@ reference's names and layouts, and their copy into the program's network.
 
 The benchmark makes the weights; both the program and the plain reference
 get them. Every leaf comes from one ``torch.randn`` on the card: He-normal
-weights (std sqrt(2 / fan_in)), biases and BN betas 0.1 N(0, 1), BN gammas
-1; training cells draw their dense layers' weights at the model's own
-0.01 N(0, 1). Running statistics start at mean 0 and std 1 for training (so a
-network's first step is a captured one); served networks take them from a
-seeded calibration batch through the reference (``plain.Executor`` in mode
-"calibrate").
+weights (std sqrt(2 / fan_in)), biases and BN and LayerNorm betas 0.1
+N(0, 1), BN and LayerNorm gammas and layer scales 1; training cells draw
+their dense layers' weights at the model's own 0.01 N(0, 1). Running
+statistics, the batch norms' alone, start at mean 0 and std 1 for
+training (so a network's first step is a captured one); served networks
+take them from a seeded calibration batch through the reference
+(``plain.Executor`` in mode "calibrate").
 """
 
 import math
@@ -47,14 +48,22 @@ def make_params(spec, seed, device, dense_std=None):
     return params
 
 
-def bn_names(spec):
-    return [name[:-len("/gamma")] for name, _, _, kind in spec if kind == "gamma"]
+def bn_names(layers):
+    """The batch norms of a layer table (``plain.layer_table``): its "bn"
+    rows. A LayerNorm's gain and a channel scale are ``"gamma"`` leaves as
+    a batch norm's gamma is, and keep no running statistics."""
+    return [l["name"] for l in layers if l["op"] == "bn"]
 
 
-def train_stats(spec, params):
-    """Running mean 0 and std 1 for every batch norm."""
+def train_stats(spec, params, layers=None):
+    """Running mean 0 and std 1 for every batch norm of the layer table
+    ``layers``. Without a table, every ``"gamma"`` leaf of the parameter
+    spec is taken for a batch norm's gamma, which holds only in a model
+    with no LayerNorm or channel scale."""
+    names = bn_names(layers) if layers is not None else \
+        [name[:-len("/gamma")] for name, _, _, kind in spec if kind == "gamma"]
     return {n: (torch.zeros_like(params[n + "/gamma"]), torch.ones_like(params[n + "/gamma"]))
-            for n in bn_names(spec)}
+            for n in names}
 
 
 def calibrated_stats(forward, cfg, params, seed, device, images=8):

@@ -6,8 +6,10 @@ Batches of ``batch`` fp32 images are cycled from a host pool of
 ``pool_batches`` made from the seed. The feed stops once ``--seconds`` have
 passed; the batches already queued finish, and the window ends at the last
 answer. The end-to-end metric is every image whose probabilities reached
-the host, over the window's seconds. The comparison: every answered image
-against the reference's probabilities of it (``prob_gap``).
+the host, over the window's seconds; a traced run also counts the images
+of its profiled slice (``slice_images``), for the card's own rate. The
+comparison: every answered image against the reference's probabilities of
+it (``prob_gap``).
 """
 
 import time
@@ -68,9 +70,12 @@ def run(rec):
     rec.note("window: {} batches, {} images in {:.4f} s".format(len(answers), rec.images,
                                                                end - start))
     if rec.trace and dev.type == "cuda":
+        traced = []
         rec.slice = trace.profile_slice(
-            lambda: stream(runner, pool, float(mix["trace_seconds"]), rec.spans),
+            lambda: traced.extend(
+                stream(runner, pool, float(mix["trace_seconds"]), rec.spans)[2]),
             rec.spans)
+        rec.counters["slice_images"] = sum(len(p) for _, p in traced)
     rec.memory_peak = memory_peak(dev)
     rec.read_layers()
     del runner

@@ -2,21 +2,25 @@
 
 A reference model (``reference/<name>.py``) is one function,
 ``forward(ex, x, cfg)``, that names its layers and their widths through the
-methods of an ``Executor``: ``conv``, ``dw``, ``pw``, ``bn``, ``dense``,
-``se`` and the activations. The executor holds the parameters and running
+methods of an ``Executor``: ``conv``, ``dw``, ``pw`` (each with an optional
+bias), ``bn``, ``ln`` (LayerNorm over the channels), ``scale`` (a learned
+per-channel multiply), ``dense``, ``se``, and the activations ``relu``,
+``hard_swish`` and ``gelu``. The executor holds the parameters and running
 statistics by ``<layer>/<parameter>`` name, in the layouts of the model's
 published checkpoints (conv (O, I, k, k), depthwise (C, k, k), pointwise
 (O, C), dense (in, out); batch norm keeps gamma, beta, the running mean and
-the running **std**, sqrt(var + eps)), and runs each layer with plain
-``torch`` operations on NCHW tensors. It imports nothing of the program.
+the running **std**, sqrt(var + eps); LayerNorm gamma and beta, and no
+running statistics), and runs each layer with plain ``torch`` operations on
+NCHW tensors. It imports nothing of the program.
 
 Modes:
 
 - ``"spec"``: x is one zero image on the CPU and every parameter zeros;
   each layer records its parameters (name, shape, fan-in, kind) and its
   shapes at ``batch`` images. That gives the weights to make and the layer
-  table the work counts (``work/counts.py``) read. (Tracing on the ``meta``
-  device would import ``torch._dynamo``, two seconds of every set-up.)
+  table the work counts (``work/counts.py``) read (``layer_table``).
+  (Tracing on the ``meta`` device would import ``torch._dynamo``, two
+  seconds of every set-up.)
 - ``"train"``: batch norm normalises by the batch statistics (biased
   variance) and folds them into the running stats at ``momentum``.
 - ``"eval"``: batch norm normalises by the running stats.
@@ -99,22 +103,26 @@ class Executor:
         return reported, full
 
     # ---- layers --------------------------------------------------------
-    def conv(self, name, x, out_ch, k, stride, pad, reg=True):
+    def conv(self, name, x, out_ch, k, stride, pad, reg=True, bias=False):
         w = self._weight(name, (out_ch, x.shape[1], k, k), x.shape[1] * k * k, reg)
-        y = F.conv2d(x, w, stride=stride, padding=pad)
+        b = self._bias(name, out_ch) if bias else None
+        y = F.conv2d(x, w, b, stride=stride, padding=pad)
         return self._record("conv", name, x, y, k=k, stride=stride)
 
-    def dw(self, name, x, k, stride, pad):
+    def dw(self, name, x, k, stride, pad, bias=False):
         C = x.shape[1]
         w = self._weight(name, (C, k, k), k * k, reg=False)
-        y = F.conv2d(x, w.unsqueeze(1), stride=stride, padding=pad, groups=C)
+        b = self._bias(name, C) if bias else None
+        y = F.conv2d(x, w.unsqueeze(1), b, stride=stride, padding=pad, groups=C)
         return self._record("dw", name, x, y, k=k, stride=stride)
 
-    def pw(self, name, x, out_ch, stride=1, reg=True, reported=True):
+    def pw(self, name, x, out_ch, stride=1, reg=True, reported=True, bias=False):
         """1x1 conv; stride > 1 subsamples the grid first (output ceil(H/s))."""
         w = self._weight(name, (out_ch, x.shape[1]), x.shape[1], reg, reported)
         xs = x[:, :, ::stride, ::stride] if stride > 1 else x
         y = torch.einsum("nchw,oc->nohw", xs, w)
+        if bias:
+            y = y + self._bias(name, out_ch).view(1, -1, 1, 1)
         return self._record("pw", name, x, y, stride=stride)
 
     def dense(self, name, x, out, reg=True):
@@ -168,6 +176,31 @@ class Executor:
         g = hard_sigmoid(torch.relu(s @ w_r + b_r) @ w_e + b_e)
         return x * g[:, :, None, None]
 
+    def ln(self, name, x, eps):
+        """LayerNorm over the channel axis: at every position of an NCHW
+        tensor, or over each row of an (N, C) one; biased variance, no
+        running statistics in any mode."""
+        C = x.shape[1]
+        gamma = self._param(name + "/gamma", (C,), None, "gamma")
+        beta = self._param(name + "/beta", (C,), None, "beta")
+        self._record("ln", name, x, x)
+        if self.mode == "spec":
+            return x
+        view = (1, -1, 1, 1) if x.dim() == 4 else (1, -1)
+        mean = x.mean(dim=1, keepdim=True)
+        var = x.var(dim=1, unbiased=False, keepdim=True)
+        x_hat = (x - mean) * torch.rsqrt(var + eps)
+        return gamma.view(view) * x_hat + beta.view(view)
+
+    def scale(self, name, x):
+        """A learned per-channel multiply (a layer scale)."""
+        C = x.shape[1]
+        s = self._param(name + "/scale", (C,), None, "gamma")
+        self._record("scale", name, x, x)
+        if self.mode == "spec":
+            return x
+        return x * s.view((1, -1, 1, 1) if x.dim() == 4 else (1, -1))
+
     def gap(self, x):
         return x.mean(dim=(2, 3))
 
@@ -184,9 +217,18 @@ def hard_swish(x):
     return x * hard_sigmoid(x)
 
 
+def gelu(x):
+    """GELU with the exact erf, as ConvNeXt's published model takes it."""
+    return F.gelu(x, approximate="none")
+
+
 def layer_table(forward, cfg, batch):
     """(param spec, layer table, reg terms) of ``forward`` at ``batch``
-    images of the configuration's input size."""
+    images of the configuration's input size. The table has a row a layer
+    in call order, its ``op`` ("conv", "dw", "pw", "dense", "se", "bn",
+    "ln" or "scale"), name and shapes; the "bn", "ln" and "scale" rows count
+    no FLOPs. Its "bn" rows are the batch norms, the only layers with
+    running statistics."""
     ex = Executor("spec", batch=batch)
     H, W = cfg["image_hw"]
     with torch.no_grad():

@@ -67,6 +67,12 @@ def test_kernel_counts():
     # bytes bound at 3.35 TB/s
     assert counts.dw_bound_ms(120, 56, 56, 64, 1) == pytest.approx(
         120 * 56 * 56 * 64 * 8 / 3.35e12 * 1e3)
+    # k = 3 by default; a 7x7 (padding 3) keeps the grid, 2 x 49 flops an
+    # output element, still bound by its bytes at this width
+    assert counts.dw_bound_ms(120, 56, 56, 64, 2, k=3) == counts.dw_bound_ms(120, 56, 56, 64, 2)
+    assert counts.dw_bytes(128, 56, 56, 96, 1, k=7) == 2 * 128 * 56 * 56 * 96 * 4
+    assert counts.dw_bound_ms(128, 56, 56, 96, 1, k=7) == pytest.approx(
+        max(2 * 128 * 56 * 56 * 96 * 4 / 3.35e12, 98 * 128 * 56 * 56 * 96 / 67e12) * 1e3)
     assert counts.bn_stats_bound_ms(120, 112, 112, 64) == pytest.approx(
         120 * 112 * 112 * 64 * 4 / 3.35e12 * 1e3)
     # 60 crops of 225 x 225 x 3, read and written once

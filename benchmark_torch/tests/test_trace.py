@@ -1,10 +1,13 @@
 """The profiled slice's arithmetic: busy time as the union of device
 intervals, shares by class, idle gaps by the host span open at their
-start."""
+start; the bulk cell's busy rate read from it."""
+
+from types import SimpleNamespace
 
 import pytest
 
 from benchmark_torch.harness import trace
+from benchmark_torch.harness.cell import reader
 
 
 def test_busy_union_and_idle_gaps():
@@ -20,3 +23,13 @@ def test_busy_union_and_idle_gaps():
     assert s.class_share(trace.ELEMENTWISE) == pytest.approx(100 * 13 / 55)
     top = s.breakdown()["device_ops"]
     assert top[0][0] == "Memcpy HtoD" and top[0][1] == pytest.approx(22e-9)
+
+
+def test_busy_rate_reads_the_slice_images_over_busy_seconds():
+    read = reader("busy_img_per_s.bulk")
+    s = trace.summarise([(0, 500_000_000, "gemm"), (600_000_000, 700_000_000, "add")], [],
+                        0, 1_000_000_000)
+    assert read(SimpleNamespace(slice=s, counters={"slice_images": 1536})) == \
+        pytest.approx(1536 / 0.6)
+    assert read(SimpleNamespace(slice=None, counters={"slice_images": 1536})) is None
+    assert read(SimpleNamespace(slice=s, counters={})) is None

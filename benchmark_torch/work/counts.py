@@ -65,18 +65,25 @@ def dw3x3_layers(layers):
             for l in layers if l["op"] == "dw" and l["k"] == 3]
 
 
-def dw_bytes(N, H, W, C, stride):
-    """fp32 bytes of one depthwise 3x3 pass (forward, dx or dw): the larger
-    activation read once and the smaller one written (or read) once."""
-    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+def _dw_out(H, W, stride, k):
+    """The output grid of a k x k depthwise pass with padding k // 2."""
+    p = k // 2
+    return (H + 2 * p - k) // stride + 1, (W + 2 * p - k) // stride + 1
+
+
+def dw_bytes(N, H, W, C, stride, k=3):
+    """fp32 bytes of one depthwise k x k pass (forward, dx or dw; padding
+    k // 2): the input activation and the output activation each read or
+    written once (for odd k the output is ceil(H / stride) on a side)."""
+    Ho, Wo = _dw_out(H, W, stride, k)
     return (N * H * W * C + N * Ho * Wo * C) * 4
 
 
-def dw_bound_ms(N, H, W, C, stride):
-    """The least time of one depthwise 3x3 pass: its bytes, or its 18 flops
-    an output element."""
-    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    return _bound_ms(dw_bytes(N, H, W, C, stride), 18.0 * N * Ho * Wo * C)
+def dw_bound_ms(N, H, W, C, stride, k=3):
+    """The least time of one depthwise k x k pass: its bytes, or its 2 k^2
+    flops an output element."""
+    Ho, Wo = _dw_out(H, W, stride, k)
+    return _bound_ms(dw_bytes(N, H, W, C, stride, k), 2.0 * k * k * N * Ho * Wo * C)
 
 
 def bn_layers(layers):
