@@ -7,8 +7,10 @@ from dorknet_tpu_torch.layers.depthwise_convolution import DepthwiseConvLayer
 from dorknet_tpu_torch.layers.pointwise_convolution import PointwiseConvLayer
 from dorknet_tpu_torch.layers.dense_layer import DenseLayer
 from dorknet_tpu_torch.layers.batch_norm import BatchNormLayer
-from dorknet_tpu_torch.layers.activations import (HardSigmoid, HardSwish, IdentityLayer, ReLu,
-                                                  ReLu6)
+from dorknet_tpu_torch.layers.activations import (GELU, HardSigmoid, HardSwish, IdentityLayer,
+                                                  ReLu, ReLu6)
+from dorknet_tpu_torch.layers.layer_norm import LayerNormLayer
+from dorknet_tpu_torch.layers.layer_scale import LayerScale
 from dorknet_tpu_torch.layers.squeeze_excite import SqueezeExciteLayer
 from dorknet_tpu_torch.layers.pooling import GlobalAveragePoolingLayer, MaxPoolLayer
 from dorknet_tpu_torch.layers.reshape import ReshapeLayer
@@ -27,6 +29,9 @@ __all__ = [
     "IdentityLayer",
     "HardSwish",
     "HardSigmoid",
+    "GELU",
+    "LayerNormLayer",
+    "LayerScale",
     "SqueezeExciteLayer",
     "GlobalAveragePoolingLayer",
     "MaxPoolLayer",

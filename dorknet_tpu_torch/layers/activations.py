@@ -5,14 +5,15 @@ as ``torch.minimum(torch.maximum(...))``, as ``jnp.clip`` computes them, so
 their gradient at a bound is 0.5, as the JAX package's (``torch.clamp``'s
 would be 1). In a train-mode layer list, a ``ReLu`` or ``HardSwish`` right
 after a ``BatchNormLayer`` runs inside the batch norm's kernels
-(``layers/sequence.py``); its ``fapply`` is then not called."""
+(``layers/sequence.py``); its ``fapply`` is then not called. ``GELU`` (the
+exact erf, ConvNeXt's) is the port's own and is never paired."""
 
 import torch
 
 from dorknet_tpu_torch.layers.base import Layer
 from dorknet_tpu_torch.layers.registry import register_layer
 from dorknet_tpu_torch.ops.activation import (  # noqa: F401 (constant: its cache)
-    clip, constant, hard_sigmoid, hard_swish)
+    clip, constant, gelu, hard_sigmoid, hard_swish)
 from dorknet_tpu_torch.utils import h5io
 
 
@@ -95,6 +96,24 @@ class HardSigmoid(Layer):
 
     def save_to_h5(self, open_f, save_grads=True):
         h5io.create_layer_info(open_f, self.layer_name, "HardSigmoid")
+
+    def load_from_h5(self, open_f, load_grads=True):
+        pass
+
+
+@register_layer
+class GELU(Layer):
+    """x * Phi(x) with the exact erf (``ops/activation.gelu``), ConvNeXt's
+    activation (not in the reference)."""
+
+    def __repr__(self):
+        return "GELU({})".format(self.layer_name)
+
+    def fapply(self, x, train=False):
+        return gelu(x)
+
+    def save_to_h5(self, open_f, save_grads=True):
+        h5io.create_layer_info(open_f, self.layer_name, "GELU")
 
     def load_from_h5(self, open_f, load_grads=True):
         pass

@@ -10,6 +10,7 @@ package's (``torch.clamp``'s would be 1)."""
 import functools
 
 import torch
+import torch.nn.functional as F
 
 
 @functools.cache
@@ -37,6 +38,12 @@ def hard_sigmoid(x):
 def hard_swish(x):
     """x * hard_sigmoid(x), MobileNet-V3's activation."""
     return x * hard_sigmoid(x)
+
+
+def gelu(x):
+    """x * Phi(x) with the exact erf, in x's dtype: ConvNeXt's GELU (the JAX
+    package has none)."""
+    return F.gelu(x, approximate="none")
 
 
 # the activations a batch norm's kernels can apply, by the name they take

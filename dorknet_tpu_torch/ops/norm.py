@@ -25,9 +25,17 @@ recomputes x̂ from x with the forward's arithmetic.
 writes y, the backward recomputes y from x and differentiates the
 activation in registers (``ops/cuda/bn_train.py``). It saves beta besides
 (the parameter itself, no copy): no activation-sized tensor more.
+
+``layer_norm`` normalises each position over its channels (the last axis
+of an NHWC tensor or of (N, C) rows), ConvNeXt's LayerNorm. The JAX package
+has none; it is ``F.layer_norm`` in fp32, the statistics with the biased
+variance, and keeps no running statistics. ``layer_norm.launches_by_layout``
+counts its calls by input layout (``"nhwc"``, ``"rows"``), bumped in
+Python, so a replayed graph leaves it as it is.
 """
 
 import torch
+import torch.nn.functional as F
 
 from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats
 from dorknet_tpu_torch.ops.cuda.bn_train import bn_apply, bn_bwd_dx, bn_bwd_reduce
@@ -83,3 +91,18 @@ def batch_norm_inference(x, gamma, beta, running_mean, running_std):
     shape = (1, 1, 1, -1) if x.dim() == 4 else (1, -1)
     x_hat = (x.float() - running_mean.reshape(shape)) / running_std.reshape(shape)
     return (gamma.reshape(shape) * x_hat + beta.reshape(shape)).to(x.dtype)
+
+
+def layer_norm(x, gamma, beta, eps=1e-6):
+    """(x - mean) / sqrt(var + eps) * gamma + beta over the last axis of an
+    (N,H,W,C) or (N,C) x, the statistics and the affine in fp32 (biased
+    variance), returned in x's dtype, as batch norm's dtype rules go.
+    gamma and beta are the fp32 (C,) parameters."""
+    if x.dim() not in (2, 4):
+        raise ValueError("layer_norm takes (N,H,W,C) or (N,C), got shape {}".format(
+            tuple(x.shape)))
+    layer_norm.launches_by_layout["nhwc" if x.dim() == 4 else "rows"] += 1
+    return F.layer_norm(x.float(), (x.shape[-1],), gamma, beta, eps).to(x.dtype)
+
+
+layer_norm.launches_by_layout = {"nhwc": 0, "rows": 0}

@@ -72,7 +72,8 @@ def load_regulariser(dset):
     return None
 
 
-def _read(open_f, path):
+def read_array(open_f, path):
+    """The dataset at ``path`` as a float32 numpy array."""
     return np.asarray(open_f[path][:], dtype=np.float32)
 
 
@@ -83,10 +84,10 @@ def load_param_datasets(open_f, layer_name, with_bias, load_grads=True):
     them raises KeyError when ``load_grads`` is set."""
     dset = open_f[layer_name + "/weights"]
     weights = np.asarray(dset[:], dtype=np.float32)
-    bias = _read(open_f, layer_name + "/bias") if with_bias else None
+    bias = read_array(open_f, layer_name + "/bias") if with_bias else None
     grads = {}
     if load_grads:
-        grads["weights"] = _read(open_f, layer_name + "/grads/weights")
+        grads["weights"] = read_array(open_f, layer_name + "/grads/weights")
         if with_bias:
-            grads["bias"] = _read(open_f, layer_name + "/grads/bias")
+            grads["bias"] = read_array(open_f, layer_name + "/grads/bias")
     return weights, bias, load_regulariser(dset), grads

@@ -12,7 +12,8 @@ The file holds a dict with the keys of the JAX package's ``_state_tree``:
 * ``states``: one entry per layer in the shape of ``get_state()``, with
   None for the statistics of a batch norm that was unset;
 * ``opt_cache`` (given a trainer that has optimiser state): the trainer's
-  cache, a list of tensors in ``network.parameters()`` order;
+  cache, a list of tensors in ``network.parameters()`` order (``AdamW``'s:
+  the first moments, the second moments, then its 0-dim step count);
 * ``ema`` (given a trainer that keeps one): the shadow, in the same order.
 
 ``load_checkpoint`` restores in place: it copies into the live parameters,

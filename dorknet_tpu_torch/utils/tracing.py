@@ -34,7 +34,9 @@ The spans, by the module that opens them:
 - ``network/inference.py``: in ``predict_iter``, ``runner.forward`` (one
   batch's forward queued), ``runner.fetch`` (its probabilities' copy back
   queued) and ``runner.answer`` (the previous batch's probabilities waited
-  for and unpacked).
+  for and unpacked);
+- ``optimisers/AdamW.py``: ``adamw.update`` (the update's launches, in an
+  eager step and in a capture; a replay runs no host code).
 """
 
 import contextlib

@@ -1260,3 +1260,59 @@ def test_captured_step_opens_its_spans(cuda):
         assert [n for n in inside if n != "ring.wait"] == [
             "trainer.key", "trainer.stage", "trainer.replay", "trainer.outputs"]
     assert names[-1] == "ring.wait" and graphed.captures == 1
+
+
+def test_captured_convnext_replays_equal_eager_steps(cuda):
+    """A small ConvNeXt (two stages of one block) under AdamW: the first
+    step warms up and captures (no batch norm to adopt), the next three
+    replay. Each equals an eager trainer's step, and both step counts read
+    4 on the card: each replay advanced the count, where one baked into the
+    graph would give every replay the first step's bias corrections."""
+    from dorknet_tpu_torch.models import ConvNeXt
+    from dorknet_tpu_torch.optimisers import AdamW
+
+    trainers = []
+    for flag in (True, False):
+        np.random.seed(90)
+        net = ConvNeXt("small", num_classes=5, depths=(1, 1), dims=(24, 48))
+        trainers.append(Trainer(net, AdamW(net, 1e-3), device=cuda, cuda_graph=flag))
+    graphed, eager = trainers
+    X, y = _graph_batches(91, 4, hw=32)
+    for k in range(4):
+        lg, pg = graphed.step(X[k], y[k])
+        le, pe = eager.step(X[k], y[k])
+        torch.testing.assert_close(lg, le, rtol=1e-5, atol=0)
+    assert graphed.captures == 1 and eager.captures == 0
+    assert graphed._cache[-1].device.type == "cuda"
+    assert float(graphed._cache[-1]) == float(eager._cache[-1]) == 4.0
+    for a, b in zip(graphed.network.parameters(), eager.network.parameters(), strict=True):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 56, 56, 96), (128, 768)], ids=["nhwc", "rows"])
+def test_layer_norm_on_card_matches_cpu(cuda, shape, dtype):
+    """``ops.norm.layer_norm``'s values and the gradients of x, gamma and
+    beta on the card against the CPU, at ConvNeXt-T's first NHWC shape (8
+    images) and its head's rows. fp32: y and dx within 1e-5; dgamma and
+    dbeta, sums over 25,088 rows of magnitude up to about 500, within 2e-3
+    absolute (the CPU's own sums sit 3.7e-4 from fp64's at the NHWC shape).
+    bf16 activations: within a bf16 step."""
+    g = torch.Generator().manual_seed(shape[-1])
+    C = shape[-1]
+    leaves = (torch.randn(shape, generator=g).to(dtype), 1 + 0.1 * torch.randn(C, generator=g),
+              0.1 * torch.randn(C, generator=g))
+    dy = torch.randn(shape, generator=g).to(dtype)
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        xs = [t.to(dev).requires_grad_() for t in leaves]
+        y = norm_ops.layer_norm(*xs, eps=1e-6)
+        grads = torch.autograd.grad(y, xs, dy.to(dev))
+        out.append([t.float().cpu() for t in (y, *grads)])
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        tols = [dict(rtol=1e-5, atol=1e-5)] * 2 + [dict(rtol=1e-5, atol=2e-3)] * 2
+    else:
+        tols = [dict(rtol=1e-2, atol=1e-2)] * 4
+    for a, b, tol, what in zip(*out, tols, ("y", "dx", "dgamma", "dbeta"), strict=True):
+        torch.testing.assert_close(b, a, **tol, msg=lambda m: "{}: {}".format(what, m))

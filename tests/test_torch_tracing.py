@@ -10,6 +10,9 @@
 - A ``PinnedRing`` wait opens ``ring.wait`` only when it blocks, and tests
   its event only while the profiler records.
 - The two private torch symbols that ``tracing`` imports exist.
+- AdamW's update opens one ``adamw.update`` range a step, inside
+  ``trainer.eager``, and ``layer_norm.launches_by_layout`` counts a
+  ConvNeXt step's LayerNorms by layout.
 
 The captured step's ranges (``trainer.stage``, ``trainer.replay``,
 ``trainer.outputs``, ``trainer.capture``) and a blocking wait on a real
@@ -24,7 +27,7 @@ torch = pytest.importorskip("torch")
 from dorknet_tpu_torch import layers as L  # noqa: E402
 from dorknet_tpu_torch.data_loading.prefetch import PinnedRing  # noqa: E402
 from dorknet_tpu_torch.network import FeedForwardNetwork, InferenceRunner, Trainer  # noqa: E402
-from dorknet_tpu_torch.optimisers import SGDMomentum  # noqa: E402
+from dorknet_tpu_torch.optimisers import AdamW, SGDMomentum  # noqa: E402
 from dorknet_tpu_torch.utils import tracing  # noqa: E402
 
 AUG = dict(hsv_pert_tuples=((0.9, 1.1), (0.5, 2.0), (0.5, 2.0)), rotation_tuple=(-15.0, 15.0),
@@ -212,3 +215,38 @@ def test_ring_wait_range_only_for_a_wait_that_blocks(done):
     untraced = ring._events[0] = _Event(done)
     ring.wait(0)
     assert untraced.synchronized and not untraced.queried
+
+
+@pytest.mark.parametrize("entry", ["step", "multi_step", "accumulate_step"])
+def test_adamw_opens_one_update_range_a_step(entry):
+    net = _net()
+    trainer = Trainer(net, AdamW(net, 1e-3), device="cpu")
+    _call(trainer, entry, seed=67)  # the first call adopts the batch statistics
+    steps = []
+    ranges = _profiled(lambda: steps.append(_call(trainer, entry, seed=68)))
+    updates = [r for r in ranges if r[0] == "adamw.update"]
+    eager = [r for r in ranges if r[0] == "trainer.eager"]
+    assert len(updates) == len(eager) == steps[0]
+    for update, step in zip(updates, eager, strict=True):
+        assert _inside(update, step)
+    assert float(trainer._cache[-1]) == 2 * steps[0]  # both calls took as many steps
+
+
+def test_layer_norm_counts_a_convnext_steps_layer_norms_by_layout():
+    """Two stages of one block: the stem's, the block's and the
+    downsampling LayerNorms over NHWC, the head's over rows."""
+    from dorknet_tpu_torch.models import ConvNeXt
+    from dorknet_tpu_torch.ops.norm import layer_norm
+
+    np.random.seed(69)
+    net = ConvNeXt("traced", num_classes=3, depths=(1, 1), dims=(8, 16))
+    trainer = Trainer(net, AdamW(net, 1e-3), device="cpu")
+    X, y, *_ = _data(69, hw=32)
+    before = dict(layer_norm.launches_by_layout)
+    trainer.step(X[0], y[0])
+    assert layer_norm.launches_by_layout == {"nhwc": before["nhwc"] + 4,
+                                             "rows": before["rows"] + 1}
+    assert not _names(_profiled(lambda: None))
+    net.forward(X[0], test_mode=True)
+    assert layer_norm.launches_by_layout == {"nhwc": before["nhwc"] + 8,
+                                             "rows": before["rows"] + 2}
