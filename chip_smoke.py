@@ -231,7 +231,22 @@ Phases (each checks its results; any failure ends the run non-zero with no
     add and activation, and the 48 passes' device ms against their 2-pass
     bound and against the eager ops, and the host's µs to queue them, in
     turns. Alone: ``python -c "import
-    chip_smoke as cs; cs.phase_build(); cs.phase_bias_act()"``.
+    chip_smoke as cs; cs.phase_build(); cs.phase_bias_act()"``;
+20. the 7x7 depthwise weight gradient (``depthwise7x7_dw``,
+    ``csrc/depthwise7x7_dw.cu``) at ConvNeXt-T's four stage shapes: at the
+    cell's batch of 128 in fp32 (the bands the cell's step splits its strips
+    into) and at batch 8 in bf16, within 1e-5 of the fp64 sum of the same
+    inputs (relative to the sum of the terms' magnitudes), two runs
+    bit-equal; at batch 128, fp32, each stage's device ms against its bound
+    (``counts.dw_bound_ms(..., k=7)``), the plain version and cuDNN's
+    ``torch.nn.grad.conv2d_weight`` (TF32 off; a yardstick the port never
+    calls), and the 18 layers' sum; then ConvNeXt-T under AdamW at the
+    cell's batch of 128 and 224 px: an eager ``Trainer.step`` launches the
+    wrapper 18 times, and one replay of the captured step runs each of the
+    kernel's two kernels 18 times by name and cuDNN's grouped weight
+    gradient not at all. Alone: ``python -c "import torch;
+    torch.cuda.set_device(0); import chip_smoke as cs; cs.phase_build();
+    cs.phase_dw7x7()"``.
 
 The line before the last is a JSON object of the kernels of the paths (with
 the launches by route, and both routes' times, device times included, of
@@ -242,7 +257,8 @@ the training kernels their wrapper launches over phase 13b's driven
 steps, and every entry its launches in each run of phases 14-18 and in one
 replay of phase 16's and phase 18's captured steps; phase 19's kernels their
 own numbers by cell); JSON objects of phase
-13b's, phases 14-18's and phases 19b's and 19c's numbers come before it; the last line is
+13b's, phases 14-18's and phases 19b's and 19c's numbers come before it; phase 20's
+entry closes the kernels list; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -269,6 +285,7 @@ import torch.nn.functional as F
 from benchmark_torch.harness.timing import device_ms
 from benchmark_torch.harness.trace import ELEMENTWISE, kernel_class
 from benchmark_torch.work.counts import AUG_HSV_OPS, AUG_LERP_OPS, AUG_SHIFT_OPS, dw_bytes
+from benchmark_torch.work.counts import dw_bound_ms as dw_k_bound_ms  # any k; ours is 3x3's
 from benchmark_torch.work.peaks import FP32_FLOPS_PER_S, HBM_BYTES_PER_S
 from dorknet_tpu_torch import cam, config
 from dorknet_tpu_torch.data_loading import (DeviceResidentDataset, ImageDataLoader,
@@ -276,8 +293,8 @@ from dorknet_tpu_torch.data_loading import (DeviceResidentDataset, ImageDataLoad
                                             train_pipeline, write_packed_arrays)
 from dorknet_tpu_torch.layers.base import to_nhwc
 from dorknet_tpu_torch.examples import synthetic_cam_demo
-from dorknet_tpu_torch.models import (EfficientNetLite0, MobileNetV2, MobileNetV3Large, ResNet18,
-                                      ResNet50)
+from dorknet_tpu_torch.models import (ConvNeXt, EfficientNetLite0, MobileNetV2, MobileNetV3Large,
+                                      ResNet18, ResNet50)
 from dorknet_tpu_torch.layers import BatchNormLayer, HardSwish, ReLu, sequence
 from dorknet_tpu_torch.network import (BatchingServer, InferenceRunner, Trainer,
                                        load_serving_artifact)
@@ -286,7 +303,7 @@ from dorknet_tpu_torch.ops.cuda.augment import (
     _geometry, augment_param_table, augment_planes_fused, augment_planes_fused_plain,
     launch_augment_kernel)
 from dorknet_tpu_torch.ops.cuda.bias_act import bias_act, bias_act_plain
-from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats, batch_norm_stats_plain
+from dorknet_tpu_torch.ops.cuda.bn_stats import batch_norm_stats, batch_norm_stats_plain, sm_count
 from dorknet_tpu_torch.ops.cuda.bn_train import (bn_apply, bn_apply_plain, bn_bwd_dx,
                                                  bn_bwd_dx_plain, bn_bwd_reduce)
 import dorknet_tpu_torch.ops.cuda.depthwise as dw_mod
@@ -297,10 +314,11 @@ from dorknet_tpu_torch.ops.cuda.depthwise import (
     _dw_route, _dwgrad_route, _dx_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain,
     depthwise3x3_dx, depthwise3x3_dx_plain, depthwise3x3_plain, launch_dw, launch_dx,
     launch_forward)
+from dorknet_tpu_torch.ops.cuda.depthwise7x7 import depthwise7x7_dw, depthwise7x7_dw_plain
 from dorknet_tpu_torch.ops.cuda.matmul import (
     _gemm_route, _gemm_tile, launch_matmul, launch_matmul_bn_stats, matmul, matmul_bn_stats,
     matmul_bn_stats_plain, matmul_plain)
-from dorknet_tpu_torch.optimisers import SGDMomentum
+from dorknet_tpu_torch.optimisers import AdamW, SGDMomentum
 from dorknet_tpu_torch.serving_artifact import deserialize
 from dorknet_tpu_torch.utils import bn_fuse_ab, torch_io
 from dorknet_tpu_torch.utils.autotune import measure_device_ms
@@ -3553,6 +3571,138 @@ def phase_bias_act():
                 unfused_host_us=[host[0], host[3]])
 
 
+# ---- phase 20: ConvNeXt-T's 7x7 depthwise weight gradient ------------------
+DW7_BATCH = 128  # the ConvNeXt-T cell's batch
+DW7_BF16_BATCH = 8
+DW7_STAGES = [(56, 96, 3), (28, 192, 3), (14, 384, 9), (7, 768, 3)]  # H = W, C, layers
+DW7_RTOL = 1e-5  # of the sum of the terms' magnitudes, per tap
+DW7_IMAGE, DW7_CLASSES = 224, 1000  # the cell's images and classes
+DW7_REPLAY = ("depthwise7x7_dw_partial_kernel", "depthwise7x7_dw_finish_kernel",
+              "wgrad2d_grouped")  # the kernel's two kernels, and cuDNN's it replaced
+
+
+def dw7_inputs(N, H, C, dtype, seed):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return tuple(torch.randn((N, H, H, C), generator=g, device=DEVICE).to(dtype)
+                 for _ in range(2))
+
+
+def dw7_check(N, H, C, dtype):
+    """The kernel at (N,H,H,C) against the fp64 sum of the same inputs, and
+    two runs bit-equal. Returns its error and the plain version's, relative
+    to the sum of the terms' magnitudes."""
+    x, g = dw7_inputs(N, H, C, dtype, N + H + C)
+    dw, again = depthwise7x7_dw(x, g), depthwise7x7_dw(x, g)
+    plain = depthwise7x7_dw_plain(x, g)
+    x, g = x.double(), g.double()
+    ref = depthwise7x7_dw_plain(x, g)
+    mag = depthwise7x7_dw_plain(x.abs(), g.abs()).clamp_min(1e-30)
+    err = float(((dw.double() - ref).abs() / mag).max())
+    plain_err = float(((plain.double() - ref).abs() / mag).max())
+    shape = (N, H, H, C)
+    require(torch.equal(dw, again), "depthwise7x7_dw {} {}: two runs differ".format(shape, dtype))
+    require(err < DW7_RTOL, "depthwise7x7_dw {} {}: {:.3e} from the fp64 sum".format(
+        shape, dtype, err))
+    bands = load_library().lib.dorknet_depthwise7x7_dw_bands(
+        N, H, C, sm_count(torch.cuda.current_device()))
+    log("  {} {} in {} bands: {:.3e} of the terms' magnitudes from the fp64 sum (the plain "
+        "version {:.3e}), two runs bit-equal".format(shape, str(dtype)[6:], bands, err,
+                                                     plain_err))
+    del x, g, ref, mag
+    torch.cuda.empty_cache()
+    return err
+
+
+def dw7_step_launches():
+    """ConvNeXt-T under AdamW at the cell's batch and image size: the
+    wrapper's launches in an eager Trainer.step (by route too), then one
+    replay of the captured step: the kernels of ``DW7_REPLAY`` by name."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(DW7_BATCH, 3, DW7_IMAGE, DW7_IMAGE).astype(np.float32))
+    y = np.eye(DW7_CLASSES, dtype=np.float32)[rng.randint(0, DW7_CLASSES, DW7_BATCH)]
+    x, y = x.to(DEVICE), torch.from_numpy(y).to(DEVICE)
+
+    def trainer(cuda_graph):
+        np.random.seed(7)
+        net = ConvNeXt("convnext_t", num_classes=DW7_CLASSES)
+        return Trainer(net, AdamW(net, 1.25e-4), device=DEVICE, cuda_graph=cuda_graph)
+
+    eager = trainer(False)
+    eager.step(x, y)  # adoption
+    torch.cuda.synchronize()
+    reset_launches([depthwise7x7_dw])
+    eager.step(x, y)
+    torch.cuda.synchronize()
+    step = dict(launches=depthwise7x7_dw.launches,
+                launches_by_route=dict(depthwise7x7_dw.launches_by_route))
+    del eager
+    torch.cuda.empty_cache()
+    captured = trainer(True)
+    for _ in range(3):  # adoption, warm-up and capture, a replay
+        captured.step(x, y)
+    reset_launches([depthwise7x7_dw])
+    replay, _, _, _ = replay_profile(lambda: captured.step(x, y), DW7_REPLAY)
+    require(step == dict(launches=18, launches_by_route=dict(strip=18))
+            and replay == dict(zip(DW7_REPLAY, (18, 18, 0))) and captured.captures == 1
+            and depthwise7x7_dw.launches == 0,
+            "ConvNeXt-T's step: the 7x7 weight gradient launched {} eagerly and {} in a "
+            "replay, where 18 and 18 each are due".format(step, replay))
+    del captured, x, y
+    torch.cuda.empty_cache()
+    return step, replay
+
+
+def phase_dw7x7():
+    """Phase 20. Returns the kernels line's entry."""
+    log("== phase 20: the 7x7 depthwise weight gradient (depthwise7x7_dw) at ConvNeXt-T's "
+        "stage shapes: against its plain version at batch {} (fp32) and {} (bf16), timed at "
+        "batch {}; its launches in ConvNeXt-T's step".format(DW7_BATCH, DW7_BF16_BATCH,
+                                                              DW7_BATCH))
+    log("card:", card_line())
+    max_err = 0.0
+    for H, C, _ in DW7_STAGES:
+        for N, dtype in ((DW7_BATCH, torch.float32), (DW7_BF16_BATCH, torch.bfloat16)):
+            max_err = max(max_err, dw7_check(N, H, C, dtype))
+    stages, sums = [], dict(ms=0.0, bound_ms=0.0, plain_ms=0.0, library_ms=0.0)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for H, C, layers in DW7_STAGES:
+            x, g = dw7_inputs(DW7_BATCH, H, C, torch.float32, 20 + C)
+            xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            kern = [lambda: depthwise7x7_dw(x, g)]
+            lib = [lambda: torch.nn.grad.conv2d_weight(xc, (C, 1, 7, 7), gc, padding=3,
+                                                        groups=C)]
+            turns = [device_ms(kern, inner=10), device_ms(lib, inner=1, repeats=2),
+                     device_ms(kern, inner=10)]
+            plain = device_ms([lambda: depthwise7x7_dw_plain(x, g)], inner=1, repeats=2)
+            bound = dw_k_bound_ms(DW7_BATCH, H, H, C, 1, k=7)
+            ms = min(turns[0], turns[2])
+            stages.append(dict(shape=[DW7_BATCH, H, H, C], layers=layers, ms=[turns[0], turns[2]],
+                               bound_ms=bound, plain_ms=plain, library_ms=turns[1]))
+            for key, v in (("ms", ms), ("bound_ms", bound), ("plain_ms", plain),
+                           ("library_ms", turns[1])):
+                sums[key] += layers * v
+            log("  {} x {}: kernel {:.4f} / {:.4f} ms ({:.1%} of the bound {:.4f} ms), plain "
+                "{:.4f}, cuDNN {:.4f} (device ms, in turns)".format(
+                    (DW7_BATCH, H, H, C), layers, turns[0], turns[2], bound / ms, bound, plain,
+                    turns[1]))
+            del x, g, xc, gc
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    log("  the 18 layers: kernel {:.4f} ms ({:.1%} of the bound {:.4f} ms), plain {:.4f}, "
+        "cuDNN {:.4f}".format(sums["ms"], sums["bound_ms"] / sums["ms"], sums["bound_ms"],
+                              sums["plain_ms"], sums["library_ms"]))
+    step, replay = dw7_step_launches()
+    log("  ConvNeXt-T at batch {} and {} px: launches of an eager step {}; one replay's "
+        "kernels {}".format(DW7_BATCH, DW7_IMAGE, step, replay))
+    return dict(name="depthwise7x7_dw", route="cuda",
+                source="dorknet_tpu_torch/csrc/depthwise7x7_dw.cu", replaces=None,
+                captured_replay={k: replay[k] for k in DW7_REPLAY[:2]}, **step,
+                max_rel_err=max_err, stages=stages, **sums)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a "
@@ -3599,6 +3749,7 @@ def main():
     bn_train = phase_bn_train()
     bn_act = phase_bn_act()
     bias = phase_bias_act()
+    dw7 = phase_dw7x7()
 
     bound_ms, bound_by = flagship_bound_ms()
     dw_bound, dw_by = flagship_bound_ms(lambda C: 9 * C * 4)
@@ -3709,7 +3860,7 @@ def main():
             elif name in ("matmul", "matmul_bn_stats"):  # the three GEMM kernels, by name
                 entry[key]["captured_replay"] = sum(replay[n] for n in GEMM_KERNELS)
         entry["phase17_launches"] = p17_launches[name]
-    log(json.dumps({"kernels": kernels + bn_train}))
+    log(json.dumps({"kernels": kernels + bn_train + [dw7]}))
     log("card:", card_line())
     log("chip_smoke: {:.1f} s in all".format(time.perf_counter() - _START))
     log(json.dumps({"ok": True, "device": {

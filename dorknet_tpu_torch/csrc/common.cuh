@@ -1,5 +1,6 @@
 // Helpers shared by the port's CUDA sources: fp32 loads and stores of fp32
 // or bf16 elements, the launch grid of a grid-stride elementwise kernel, the
+// asynchronous copies to shared memory (matmul.cu, depthwise7x7_dw.cu), the
 // channel vectors and input window of the depthwise kernels
 // (depthwise3x3.cu, depthwise3x3_bwd.cu), and the second pass of the
 // batch-norm statistics (bn_stats.cu, matmul.cu).
@@ -40,6 +41,34 @@ inline bool aligned(const void* p, int bytes) {
     return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 inline bool aligned16(const void* p) { return aligned(p, 16); }
+
+// ---- asynchronous copies from device to shared memory (sm_80 and later) ----
+
+// A 16-byte copy that bypasses L1 (cp.async.cg); with pred false it reads
+// nothing and writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src, bool pred) {
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
+    const int n = pred ? 16 : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+                 : "memory");
+}
+// An 8-byte copy (cp.async.ca: .cg takes only 16 bytes); with pred false it
+// reads nothing and writes 8 zero bytes.
+__device__ __forceinline__ void cp_async8(void* smem_dst, const void* src, bool pred) {
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
+    const int n = pred ? 8 : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+                 : "memory");
+}
+// Close this thread's group of copies issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most PENDING of this thread's committed groups are in flight.
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
 
 // ---- channel vectors of the depthwise kernels ----------------------------
 

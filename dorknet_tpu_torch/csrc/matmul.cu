@@ -209,22 +209,6 @@ cudaError_t mm_dispatch_out(const void* a, const void* b, void* y, float* partia
 constexpr int PL_BK = 16;     // depth of one staged chunk of K
 constexpr int PL_STAGES = 3;  // the ring of chunks in shared memory
 
-// A 16-byte copy from device to shared memory that bypasses L1; with
-// pred false it reads nothing and writes 16 zero bytes.
-__device__ __forceinline__ void cp_async16(float* smem_dst, const float* src, bool pred) {
-    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem_dst));
-    const int n = pred ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }

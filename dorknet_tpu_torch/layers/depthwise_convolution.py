@@ -2,7 +2,9 @@
 ``dorknet_tpu/layers/depthwise_convolution.py``): weights
 (num_incoming_channels, f_rows, f_cols), the reference's stride/padding/bias
 semantics, repr and h5 schema. The 3x3 stride-1/2 cases run the hand-written
-CUDA kernel on a GPU (``ops/conv.py:depthwise_conv2d``)."""
+CUDA kernels on a GPU; a 7x7 / padding 3 / stride 1 layer with C a multiple
+of 4 runs cuDNN's forward and dx and, in training, the hand-written weight
+gradient; every other shape runs ``F.conv2d`` (``ops/conv.py:depthwise_conv2d``)."""
 
 import torch
 from torch import nn

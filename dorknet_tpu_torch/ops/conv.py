@@ -10,9 +10,13 @@ added in fp32.
 - ``depthwise_conv2d`` sends every 3x3 / padding 1 / stride 1-or-2 case to
   the hand-written kernels (``ops/cuda/depthwise.py``: the forward, and in
   training the autograd Function whose backward runs the dx and dw
-  kernels), like the JAX package's Pallas dispatch. Any other shape takes
-  ``F.conv2d(groups=C)``, the JAX package's own XLA path for shapes its
-  kernel does not take. The choice is made by shape alone.
+  kernels), like the JAX package's Pallas dispatch. A 7x7 / padding 3 /
+  stride 1 case with C a multiple of 4 (ConvNeXt's) that needs a gradient
+  goes through ``ops/cuda/depthwise7x7.Depthwise7x7Fn``: cuDNN's forward and
+  dx, as below, and the hand-written weight gradient. Any other shape, and
+  that one without a gradient, takes ``F.conv2d(groups=C)``, the JAX
+  package's own XLA path for shapes its kernel does not take. The choice is
+  made by shape alone.
 - ``pointwise_conv2d`` and ``dense`` are ``torch.matmul``; stride > 1
   subsamples first (output spatial size ceil(H/s)), as the reference does.
 
@@ -24,9 +28,9 @@ bit-equal to the add then the activation layer; where one is needed they are
 ``bias_add`` then the activation's ops under autograd. With ``act=None``
 (the default) only the bias is added, by ``bias_add``.
 
-Everything but the depthwise kernels is differentiated by autograd, as the
-JAX package leaves those ops to XLA's autodiff (``bias_act`` runs only where
-no gradient is needed).
+Everything but the depthwise kernels (and the 7x7 weight gradient) is
+differentiated by autograd, as the JAX package leaves those ops to XLA's
+autodiff (``bias_act`` runs only where no gradient is needed).
 """
 
 import torch
@@ -36,6 +40,7 @@ from dorknet_tpu_torch.config import get_compute_dtype
 from dorknet_tpu_torch.ops.activation import BN_ACTIVATIONS
 from dorknet_tpu_torch.ops.cuda.bias_act import bias_act, bias_add
 from dorknet_tpu_torch.ops.cuda.depthwise import depthwise3x3
+from dorknet_tpu_torch.ops.cuda.depthwise7x7 import Depthwise7x7Fn
 
 
 def _cast_in(x):
@@ -73,6 +78,10 @@ def depthwise_conv2d(x, w_cfhfw, b=None, stride=1, padding=1, act=None):
     """Depthwise conv. x: (N,H,W,C); w: (C,fh,fw). Returns (N,P,Q,C)."""
     if stride in (1, 2) and padding == 1 and tuple(w_cfhfw.shape[1:]) == (3, 3):
         y = depthwise3x3(_cast_in(x), w_cfhfw.float(), stride)
+    elif (stride == 1 and padding == 3 and tuple(w_cfhfw.shape[1:]) == (7, 7)
+          and w_cfhfw.shape[0] % 4 == 0 and torch.is_grad_enabled()
+          and (x.requires_grad or w_cfhfw.requires_grad)):
+        y = Depthwise7x7Fn.apply(_cast_in(x), w_cfhfw)
     else:
         y = _nhwc_conv(x, w_cfhfw.unsqueeze(1), stride, padding,
                        groups=w_cfhfw.shape[0])

@@ -28,10 +28,10 @@ counted in ``bias_act.launches``, and by activation in
 import torch
 
 from dorknet_tpu_torch.ops.activation import BN_ACTIVATIONS
-from dorknet_tpu_torch.ops.cuda.bn_stats import _DTYPE_CODE, sm_count
+from dorknet_tpu_torch.ops.cuda.bn_stats import sm_count
 from dorknet_tpu_torch.ops.cuda.bn_train import (ACT_CODE, _check_act_name, _launch_args,
                                                  _on_card, pointwise_threads, vector_width)
-from dorknet_tpu_torch.ops.cuda.build import check, load_library
+from dorknet_tpu_torch.ops.cuda.build import DTYPE_CODE, check, load_library
 
 
 def bias_add(y, b):
@@ -87,7 +87,7 @@ def bias_act(y, b, act="none"):
     (C,) on y's device; act: "none", "relu" or "hswish". Returns act(y + b)
     in y's dtype. Raises where a gradient is needed: it has none."""
     _check_act_name("bias_act", act)
-    if y.dtype not in _DTYPE_CODE or y.dim() < 1:
+    if y.dtype not in DTYPE_CODE or y.dim() < 1:
         raise TypeError("bias_act: y must be (..., C) float32 or bfloat16, got {} {}".format(
             y.dtype, tuple(y.shape)))
     if tuple(b.shape) != (y.shape[-1],) or b.dtype != torch.float32 or b.device != y.device:

@@ -14,9 +14,8 @@ import functools
 
 import torch
 
-from dorknet_tpu_torch.ops.cuda.build import check, load_library
+from dorknet_tpu_torch.ops.cuda.build import DTYPE_CODE, check, load_library
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # pass 1 aims at this many blocks per SM, with bands of MIN_BAND..MAX_BAND
 # rows (a thread's serial run is a band over its 8 lanes)
@@ -29,7 +28,7 @@ def _check(x):
     if x.dim() < 1 or x.shape[-1] == 0 or x.numel() == 0:
         raise ValueError("batch_norm_stats: x must be (..., C) with rows and channels, "
                          "got shape {}".format(tuple(x.shape)))
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in DTYPE_CODE:
         raise TypeError("batch_norm_stats: x must be float32 or bfloat16, got {}".format(
             x.dtype))
     if not x.is_contiguous():
@@ -80,7 +79,7 @@ def batch_norm_stats(x):
     kernels = load_library()
     err = kernels.lib.dorknet_bn_stats(
         x.data_ptr(), partials.data_ptr(), mean.data_ptr(), var.data_ptr(), M, C, P,
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
         x.device.index)
     check(kernels.lib, err, "batch_norm_stats launch")
     batch_norm_stats.launches += 1

@@ -37,8 +37,8 @@ the unfused chain rounds it to bf16 before the batch norm's backward.
 import torch
 
 from dorknet_tpu_torch.ops.activation import BN_ACTIVATIONS, clip, constant
-from dorknet_tpu_torch.ops.cuda.bn_stats import _DTYPE_CODE, sm_count
-from dorknet_tpu_torch.ops.cuda.build import check, load_library
+from dorknet_tpu_torch.ops.cuda.bn_stats import sm_count
+from dorknet_tpu_torch.ops.cuda.build import DTYPE_CODE, check, load_library
 
 # the pointwise passes aim at this many threads a SM (its most resident)
 _THREADS_PER_SM = 2048
@@ -60,7 +60,7 @@ def _check_act(what, name, x, like=None):
     if x.dim() < 1 or x.shape[-1] == 0 or x.numel() == 0:
         raise ValueError("{}: {} must be (..., C) with rows and channels, got shape {}".format(
             what, name, tuple(x.shape)))
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in DTYPE_CODE:
         raise TypeError("{}: {} must be float32 or bfloat16, got {}".format(what, name, x.dtype))
     if not x.is_contiguous():
         raise ValueError("{}: {} must be contiguous".format(what, name))
@@ -122,7 +122,7 @@ def _ptr(t):
 
 
 def _launch_args(x):
-    return _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream, x.device.index
+    return DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream, x.device.index
 
 
 def _on_card(what, x):

@@ -26,9 +26,14 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import torch
+
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "dorknet_tpu_torch_kernels"
+
+# the dtype codes of the C entry points' ``dtype`` arguments
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -71,6 +76,10 @@ def _bind(lib):
     lib.dorknet_depthwise3x3_dw.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                             ci, ci, ci, ci, vp, ci]
     lib.dorknet_depthwise3x3_dw.restype = ci
+    lib.dorknet_depthwise7x7_dw.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, ci]
+    lib.dorknet_depthwise7x7_dw.restype = ci
+    lib.dorknet_depthwise7x7_dw_bands.argtypes = [ci, ci, ci, ci]
+    lib.dorknet_depthwise7x7_dw_bands.restype = ci
     lib.dorknet_augment_planes.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                            ctypes.c_float, ci, ci, ci, ci, ci, ci, vp, ci]
     lib.dorknet_augment_planes.restype = ci

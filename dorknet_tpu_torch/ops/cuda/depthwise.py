@@ -39,9 +39,8 @@ A/Bs on the same inputs.
 import torch
 import torch.nn.functional as F
 
-from dorknet_tpu_torch.ops.cuda.build import check, load_library
+from dorknet_tpu_torch.ops.cuda.build import DTYPE_CODE, check, load_library
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # dw pass 1 aims at this many blocks per SM (see csrc/depthwise3x3_bwd.cu):
 # the scalar route's blocks of 256 threads, the vector route's of 128 (one
@@ -67,7 +66,7 @@ def _out_hw(H, W, stride):
     return (H - 1) // stride + 1, (W - 1) // stride + 1
 
 
-def _acc_dtype(t):
+def sum_dtype(t):
     """The plain versions sum in fp32, or in fp64 for fp64 inputs (the
     finite-difference checks)."""
     return torch.float64 if t.dtype == torch.float64 else torch.float32
@@ -82,7 +81,7 @@ def _check_act(t, what):
     if t.dim() != 4:
         raise ValueError("depthwise3x3: {} must be (N,H,W,C), got shape {}".format(
             what, tuple(t.shape)))
-    if t.dtype not in _DTYPE_CODE:
+    if t.dtype not in DTYPE_CODE:
         raise TypeError("depthwise3x3: {} must be float32 or bfloat16, got {}".format(
             what, t.dtype))
     if not t.is_contiguous():
@@ -136,7 +135,7 @@ def depthwise3x3_plain(x, w, stride):
     x: (N,H,W,C); w: (C,3,3) fp32."""
     N, H, W, C = x.shape
     Ho, Wo = _out_hw(H, W, stride)
-    acc_dtype = _acc_dtype(x)
+    acc_dtype = sum_dtype(x)
     xp = F.pad(x.to(acc_dtype), (0, 0, 1, 1, 1, 1))
     acc = torch.zeros((N, Ho, Wo, C), dtype=acc_dtype, device=x.device)
     for di in range(3):
@@ -153,7 +152,7 @@ def depthwise3x3_dx_plain(g, w, stride, H, W):
     positions that tap read, and the padding is cropped. g: (N,Ho,Wo,C);
     returns (N,H,W,C) in g's dtype."""
     N, Ho, Wo, C = g.shape
-    acc_dtype = _acc_dtype(g)
+    acc_dtype = sum_dtype(g)
     gf = g.to(acc_dtype)
     acc = torch.zeros((N, H + 2, W + 2, C), dtype=acc_dtype, device=g.device)
     for di in range(3):
@@ -168,7 +167,7 @@ def depthwise3x3_dw_plain(x, g, stride):
     the padded x times g, summed over (N, Ho, Wo). Returns (C,3,3) in fp32
     (fp64 for fp64 inputs)."""
     N, Ho, Wo, C = g.shape
-    acc_dtype = _acc_dtype(x)
+    acc_dtype = sum_dtype(x)
     xp = F.pad(x.to(acc_dtype), (0, 0, 1, 1, 1, 1))
     gf = g.to(acc_dtype)
     taps = [(xp[:, di:di + stride * (Ho - 1) + 1:stride,
@@ -253,7 +252,7 @@ def launch_forward(x, w, stride, route, tw=None):
     kernels = load_library()
     err = kernels.lib.dorknet_depthwise3x3_fwd(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), N, H, W, C, stride,
-        _DTYPE_CODE[x.dtype], ROUTES.index(route), tw, _stream(x), x.device.index)
+        DTYPE_CODE[x.dtype], ROUTES.index(route), tw, _stream(x), x.device.index)
     check(kernels.lib, err, "depthwise3x3 launch ({} route)".format(route))
     depthwise3x3.launches += 1
     depthwise3x3.launches_by_route[route] += 1
@@ -286,7 +285,7 @@ def launch_dx(g, w, stride, H, W, route, tw=None):
     kernels = load_library()
     err = kernels.lib.dorknet_depthwise3x3_dx(
         g.data_ptr(), w.data_ptr(), dx.data_ptr(), N, H, W, C, stride,
-        _DTYPE_CODE[g.dtype], ROUTES.index(route), tw, _stream(g), g.device.index)
+        DTYPE_CODE[g.dtype], ROUTES.index(route), tw, _stream(g), g.device.index)
     check(kernels.lib, err, "depthwise3x3_dx launch ({} route)".format(route))
     depthwise3x3_dx.launches += 1
     depthwise3x3_dx.launches_by_route[route] += 1
@@ -353,7 +352,7 @@ def launch_dw(x, g, stride, route):
     kernels = load_library()
     err = kernels.lib.dorknet_depthwise3x3_dw(
         x.data_ptr(), g.data_ptr(), partials.data_ptr(), dw.data_ptr(),
-        N, H, W, C, stride, bands, _DTYPE_CODE[x.dtype], ROUTES.index(route), _stream(x),
+        N, H, W, C, stride, bands, DTYPE_CODE[x.dtype], ROUTES.index(route), _stream(x),
         x.device.index)
     check(kernels.lib, err, "depthwise3x3_dw launch ({} route)".format(route))
     depthwise3x3_dw.launches += 1

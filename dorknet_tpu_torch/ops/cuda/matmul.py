@@ -40,9 +40,8 @@ CPU tensors it computes the same function with its plain PyTorch version
 
 import torch
 
-from dorknet_tpu_torch.ops.cuda.build import check, load_library
+from dorknet_tpu_torch.ops.cuda.build import DTYPE_CODE, check, load_library
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # their codes at the C entry point: 0, 1, 2
 ROUTES = ("cuda_core", "tensor_core", "cuda_core_pipelined")
 # (BM, BN) of a block's tile of y: routes 0 and 1 have one (csrc/matmul.cu
@@ -56,10 +55,10 @@ def _validate(a, b, out_dtype, who):
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError("{}: a must be (M,K) and b (K,N), got {} and {}".format(
             who, tuple(a.shape), tuple(b.shape)))
-    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
+    if a.dtype not in DTYPE_CODE or b.dtype != a.dtype:
         raise TypeError("{}: a and b must both be float32 or both bfloat16, got {} and "
                         "{}".format(who, a.dtype, b.dtype))
-    if out_dtype not in _DTYPE_CODE:
+    if out_dtype not in DTYPE_CODE:
         raise TypeError("{}: out_dtype must be float32 or bfloat16, got {}".format(
             who, out_dtype))
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -148,7 +147,7 @@ def _launch(a, b, out_dtype, stats, route, tile=None):
             None if partials is None else partials.data_ptr(),
             None if mean is None else mean.data_ptr(),
             None if var is None else var.data_ptr(),
-            M, K, N, _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype], int(stats),
+            M, K, N, DTYPE_CODE[a.dtype], DTYPE_CODE[out_dtype], int(stats),
             ROUTES.index(route), bm, bn, torch.cuda.current_stream(a.device).cuda_stream,
             a.device.index)
         check(kernels.lib, err, "matmul launch ({} route)".format(route))

@@ -31,6 +31,8 @@ from dorknet_tpu_torch.ops.cuda.depthwise import (  # noqa: E402
     _dw_route, _dwgrad_route, _dx_route, depthwise3x3, depthwise3x3_dw, depthwise3x3_dw_plain,
     depthwise3x3_dx, depthwise3x3_dx_plain, depthwise3x3_plain, launch_dw, launch_dx,
     launch_forward)
+from dorknet_tpu_torch.ops.cuda.depthwise7x7 import (  # noqa: E402
+    Depthwise7x7Fn, depthwise7x7_dw, depthwise7x7_dw_plain)
 from dorknet_tpu_torch.ops.cuda.matmul import (  # noqa: E402
     PIPELINED_TILES, _gemm_route, _gemm_tile, launch_matmul, launch_matmul_bn_stats, matmul,
     matmul_bn_stats, matmul_bn_stats_plain, matmul_plain)
@@ -1316,3 +1318,124 @@ def test_layer_norm_on_card_matches_cpu(cuda, shape, dtype):
         tols = [dict(rtol=1e-2, atol=1e-2)] * 4
     for a, b, tol, what in zip(*out, tols, ("y", "dx", "dgamma", "dbeta"), strict=True):
         torch.testing.assert_close(b, a, **tol, msg=lambda m: "{}: {}".format(what, m))
+
+
+# ConvNeXt-T's four 7x7 depthwise stages (H = W, C), and odd shapes
+DW7_STAGES = [(56, 96), (28, 192), (14, 384), (7, 768)]
+
+
+def _dw7_inputs(device, N, H, W, C, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((N, H, W, C), generator=g, device=device).to(dtype)
+    gy = torch.randn((N, H, W, C), generator=g, device=device).to(dtype)
+    return x, gy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,W,C", [(N, H, H, C) for (H, C), N in zip(DW7_STAGES, (8, 4, 2, 8))]
+                         + [(3, 5, 9, 8), (2, 13, 11, 12), (1, 1, 1, 4), (2, 9, 20, 36)])
+def test_dw7x7_kernel_matches_plain_and_repeats(cuda, N, H, W, C, dtype):
+    """The 7x7 weight gradient on the card against the fp64 sum of the same
+    (fp32 or bf16) inputs: within 1e-5 of the sum of the terms' magnitudes
+    per tap (fp32 sums of up to 25,088 terms); two runs bit-equal; one
+    launch a call."""
+    x, gy = _dw7_inputs(cuda, N, H, W, C, dtype, N * 1000 + H + C)
+    before = depthwise7x7_dw.launches_by_route["strip"]
+    dw = depthwise7x7_dw(x, gy)
+    again = depthwise7x7_dw(x, gy)
+    torch.cuda.synchronize()
+    assert depthwise7x7_dw.launches_by_route["strip"] == before + 2
+    assert dw.dtype == torch.float32 and dw.shape == (C, 7, 7)
+    assert torch.equal(dw, again)
+    ref = depthwise7x7_dw_plain(x.double(), gy.double())
+    mag = depthwise7x7_dw_plain(x.double().abs(), gy.double().abs())
+    assert float(((dw.double() - ref).abs() / mag.clamp_min(1e-30)).max()) < 1e-5
+
+
+def test_dw7x7_kernel_refuses_what_it_does_not_take(cuda):
+    """C must be a multiple of 4, x and g one contiguous shape and dtype,
+    float32 or bfloat16, aligned to 4 channels (the kernel copies 4 at a
+    time): a view one element past an allocation is refused, one 4 channels
+    past it is taken and gives the plain version's sums."""
+    x, gy = _dw7_inputs(cuda, 2, 9, 9, 6, torch.float32, 1)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        depthwise7x7_dw(x, gy)
+    x, gy = _dw7_inputs(cuda, 2, 9, 9, 8, torch.float32, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        depthwise7x7_dw(x.transpose(1, 2), gy)
+    with pytest.raises(ValueError):
+        depthwise7x7_dw(x, gy.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        depthwise7x7_dw(x.half(), gy.half())
+    flat = torch.randn(4 + x.numel(), device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        depthwise7x7_dw(flat[1:1 + x.numel()].view(x.shape), gy)
+    with pytest.raises(ValueError, match="aligned"):
+        depthwise7x7_dw(x, flat[2:2 + x.numel()].view(x.shape))
+    xo = flat[4:].view(x.shape)  # 16 bytes past the allocation
+    xo.copy_(x)
+    torch.testing.assert_close(depthwise7x7_dw(xo, gy), depthwise7x7_dw_plain(x, gy),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("H,C", DW7_STAGES)
+def test_dw7x7_forward_and_dx_equal_the_conv2d_path(cuda, H, C):
+    """``Depthwise7x7Fn``'s forward and dx on the card are the values
+    autograd gives through ``F.conv2d`` (the path every other depthwise
+    shape takes), bit for bit; dw within 1e-5 relative of cuDNN's (TF32
+    off)."""
+    from dorknet_tpu_torch.ops.conv import _nhwc_conv
+
+    g = torch.Generator(device=cuda).manual_seed(C)
+    x = torch.randn((4, H, H, C), generator=g, device=cuda)
+    w = torch.randn((C, 7, 7), generator=g, device=cuda) / 7
+    gy = torch.randn((4, H, H, C), generator=g, device=cuda)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        ya = _nhwc_conv(xa, wa.unsqueeze(1), 1, 3, groups=C)
+        dxa, dwa = torch.autograd.grad(ya, (xa, wa), gy)
+        xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+        yb = Depthwise7x7Fn.apply(xb, wb)
+        dxb, dwb = torch.autograd.grad(yb, (xb, wb), gy)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert torch.equal(ya, yb) and torch.equal(dxa, dxb)
+    assert float((dwa - dwb).norm() / dwa.norm()) < 1e-5
+
+
+def test_captured_convnext_t_step_launches_the_7x7_dw_18_times(cuda):
+    """One replay of a captured ConvNeXt-T step (published depths and
+    widths, 2 images of 32 px), profiled: the 7x7 weight gradient's two
+    kernels run 18 times each, once a depthwise layer, and cuDNN's grouped
+    weight gradient not at all; the eager steps before the capture count 18
+    wrapper launches a step."""
+    from dorknet_tpu_torch.models import ConvNeXt
+    from dorknet_tpu_torch.optimisers import AdamW
+
+    np.random.seed(0)
+    net = ConvNeXt("convnext_t", num_classes=10)
+    trainer = Trainer(net, AdamW(net, 1e-3), device=cuda)
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 3, 32, 32).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(np.eye(10, dtype=np.float32)[[1, 2]]).to(cuda)
+    before = depthwise7x7_dw.launches
+    for _ in range(2):  # warm-up and capture, a replay
+        trainer.step(x, y)
+    torch.cuda.synchronize()
+    assert trainer.captures == 1
+    assert (depthwise7x7_dw.launches - before) % 18 == 0 and depthwise7x7_dw.launches > before
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        loss, _ = trainer.step(x, y)
+        torch.cuda.synchronize()
+    names = ("depthwise7x7_dw_partial_kernel", "depthwise7x7_dw_finish_kernel",
+             "wgrad2d_grouped")
+    counts = dict.fromkeys(names, 0)
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                counts[name] += evt.count if name in evt.key else 0
+    assert np.isfinite(float(loss)) and trainer.captures == 1
+    assert counts == {names[0]: 18, names[1]: 18, names[2]: 0}
